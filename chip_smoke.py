@@ -3,13 +3,33 @@
 Drives the port's main path, greedy matchtigs, through its CLI on the
 repository's flagship dataset (synthetic 10 Mbp pangenome, 7 strains, 1%
 mutations, repeats, k=31), after building every kernel from the sources
-in the checkout and holding each against its plain PyTorch version.
+in the checkout and holding each against its plain PyTorch version:
+
+- ``kernel_vs_plain`` / ``kernel_main_shape``: the register kernel
+  (``csrc/sssp_pool.cu``) on two graphs and on all flagship device sources;
+- ``wide_vs_plain``: the wide kernel (``csrc/sssp_wide.cu``), both
+  schedules, packed and unpacked, on the sources that overflow C=4;
+- ``compact_vs_full``: the compaction kernel (``csrc/sssp_compact.cu``) on
+  the C=4 rows of all device sources, and the compact candidate download
+  against the full one;
+- ``cli_device``: the default CLI (one register-kernel launch);
+- ``greedy_device_vs_host``: library runs of both engines;
+- ``cli_ladder``: the CLI with ``--sssp-overflow-mode ladder`` (the wide
+  kernel serves the stages at C >= 256);
+- ``cli_k131``: the CLI at k=131 on a string-generated input (unpacked
+  adjacency and rows).
+
+Each kernel's ``launches`` in the kernels line is read from a path run
+with the counts set to 0 just before it: ``sssp_pool`` from
+``cli_device``, ``sssp_wide`` from ``cli_ladder`` and ``cli_k131``,
+``sssp_compact`` from the compact dispatch of ``compact_vs_full``.
 
     python3 chip_smoke.py [--genome-length N]
 
-Phases print one line each; any failure exits non-zero.  The last two
-lines are the GPU's name and power limit and a JSON status object.
-Needs a CUDA device; exits non-zero without one.
+Phases print one JSON line each, with their seconds; any failure exits
+non-zero.  The last three lines are the kernels, the GPU's name and power
+limit, and a JSON status object.  Needs a CUDA device; exits non-zero
+without one.
 """
 
 from __future__ import annotations
@@ -35,6 +55,11 @@ MUTATION_RATE = 0.01
 SEED = 0
 CAPACITY = 4  # the GreedytigConfig default
 N_FLAGSHIP_CHECK = 20_000  # flagship sources held against the plain version
+WIDE_CAPACITIES = (16, 256, 1024)
+WIDE_UNPACKED_BOUND = 30  # the k=31 bound on the unpacked layouts
+DEEP_BOUND, DEEP_CAPACITY = 130, 256  # the k=131 bound on the flagship
+MAX_BALL = 1 << 16  # GreedytigConfig.max_capacity
+DEVICE_TYPE = "cuda"
 
 
 def phase(name: str, **fields) -> None:
@@ -61,10 +86,41 @@ def kernel_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def plain_ms(fn):
+    """(result, host milliseconds) of a plain version run to completion."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def row_mismatches(got, want) -> dict:
+    """Flag and row mismatches of (rows, dist, over) against the plain
+    version's, and the largest absolute difference on non-overflowed rows."""
+    rows, dist, over = got
+    prows, pdist, pover = want
+    done = over == 0
+    diff = (rows[done].long() - prows[done].long()).abs()
+    bad = (rows[done] != prows[done]).any(1)
+    if pdist is not None:
+        ddiff = (dist[done].long() - pdist[done].long()).abs()
+        diff = torch.cat([diff.flatten(), ddiff.flatten()])
+        bad |= (dist[done] != pdist[done]).any(1)
+    return dict(
+        flag_mismatch=int((over != pover).sum()),
+        row_mismatch=int(bad.sum()),
+        max_abs_err=int(diff.max()) if diff.numel() else 0,
+        overflow=int(over.sum()),
+    )
+
+
 def compare(sssp, dg, sources: np.ndarray, max_weight: int, capacity: int,
             device) -> dict:
-    """The kernel on ``device`` against the plain version on a CPU copy:
-    mismatching overflow flags and non-overflowed rows (both must be 0)."""
+    """The register kernel on ``device`` against the plain version on a CPU
+    copy: mismatching overflow flags and non-overflowed rows (both must be
+    0)."""
+    t0 = time.monotonic()
     adj = dg.device_buffers(device)
     src = torch.from_numpy(np.ascontiguousarray(sources, np.int32))
     src_dev = src.to(device)
@@ -72,31 +128,50 @@ def compare(sssp, dg, sources: np.ndarray, max_weight: int, capacity: int,
     torch.cuda.synchronize()
     ms = kernel_ms(lambda: sssp.pool_sssp(adj, src_dev, max_weight, capacity))
     t0 = time.perf_counter()
-    pkey, pover = sssp.pool_sssp_plain(
-        dg.device_buffers("cpu"), src, max_weight, capacity
-    )
+    want = sssp.pool_sssp_plain(dg.device_buffers("cpu"), src, max_weight, capacity)
     plain_cpu_ms = 1e3 * (time.perf_counter() - t0)
-    key, over = key.cpu(), over.cpu()
-    done = over == 0
-    diff = (key[done].long() - pkey[done].long()).abs()
     return dict(
-        sources=len(sources), capacity=capacity,
-        flag_mismatch=int((over != pover).sum()),
-        row_mismatch=int((key[done] != pkey[done]).any(1).sum()),
-        max_abs_err=int(diff.max()) if diff.numel() else 0,
-        overflow=int(over.sum()), kernel_ms=ms, plain_cpu_ms=plain_cpu_ms,
+        seconds=time.monotonic() - t0, sources=len(sources), capacity=capacity,
+        kernel_ms=ms,
+        plain_cpu_ms=plain_cpu_ms,
+        **row_mismatches((key.cpu(), None, over.cpu()), want),
     )
+
+
+def check(ok: bool, message: str) -> None:
+    if not ok:
+        raise SystemExit(message)
+
+
+def write_fasta(path: Path, store) -> None:
+    with gzip.open(path, "wb", compresslevel=1) as f:
+        for i in range(len(store)):
+            f.write(b">%d\n%s\n" % (i, store.get_ascii(i)))
+
+
+def spelled_kmer_set(store, k: int) -> np.ndarray:
+    """Sorted unique canonical packed k-mers (k <= 31) of every sequence in
+    ``store``: one rolling pack over the concatenated codes, keeping the
+    k-mers that lie inside one sequence."""
+    from matchtigs_tpu_torch.utils import dna
+
+    packed = dna.pack_kmers_u64(store.codes, k)
+    start = np.arange(len(packed))
+    seq = np.searchsorted(store.offsets, start, side="right") - 1
+    inside = start + k <= store.offsets[seq + 1]
+    return np.unique(dna.canonical_packed_u64(packed[inside], k))
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--genome-length", type=int, default=10_000_000)
     args = ap.parse_args(argv)
+    t_start = time.monotonic()
 
     # 1. Device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's smoke needs one")
-    device = torch.device("cuda", 0)
+    device = torch.device(DEVICE_TYPE, 0)
     torch.cuda.set_device(device)
     gpu = gpu_line()
     phase("device", gpu=gpu, torch=torch.__version__, cuda=torch.version.cuda,
@@ -120,7 +195,8 @@ def main(argv=None) -> int:
     t_nvcc = time.monotonic() - t0
     t0 = time.monotonic()
     native.load()
-    phase("build", nvcc_s=t_nvcc, gxx_s=time.monotonic() - t0)
+    phase("build", nvcc_s=t_nvcc, gxx_s=time.monotonic() - t0,
+          kernels=sorted(sssp.build_kernels()))
 
     # the flagship dataset (set-up, cached under .bench_data)
     t0 = time.monotonic()
@@ -130,7 +206,7 @@ def main(argv=None) -> int:
         with_repeats=True,
     )
     g = build_bigraph_from_unitigs(store, k)
-    out_nodes, _, _ = unbalanced_nodes(g)
+    out_nodes, in_mask, _ = unbalanced_nodes(g)
     dg = build_device_graph(g)
     pending, hard = split_device_sources(
         dg, out_nodes, GreedytigConfig.host_route_threshold
@@ -140,7 +216,8 @@ def main(argv=None) -> int:
           sources=len(out_nodes), device_sources=len(pending),
           host_routed=0 if hard is None else len(hard))
 
-    # 3. Kernel vs plain version
+    # 3. Register kernel vs plain version
+    t0 = time.monotonic()
     small_store, _, small_k = testing.make_unitig_store(
         genome_length=40000, k=13, seed=7
     )
@@ -155,97 +232,258 @@ def main(argv=None) -> int:
             r = compare(sssp, cdg, srcs, kk - 1, cap, device)
             phase("kernel_vs_plain", graph=name, **r)
             checks.append(r)
-            if r["flag_mismatch"] or r["row_mismatch"]:
-                raise SystemExit(f"kernel disagrees with its plain version: {r}")
+            check(not (r["flag_mismatch"] or r["row_mismatch"]),
+                  f"kernel disagrees with its plain version: {r}")
     # at the main path's shape: all device sources of the flagship, C=4;
     # the plain version runs on the card too
     adj = dg.device_buffers(device)
     src = torch.from_numpy(pending).to(device)
     main_ms = kernel_ms(lambda: sssp.pool_sssp(adj, src, k - 1, CAPACITY))
     key, over = sssp.pool_sssp(adj, src, k - 1, CAPACITY)
-    t0 = time.perf_counter()
-    pkey, pover = sssp.pool_sssp_plain(adj, src, k - 1, CAPACITY)
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - t0)
-    done = over == 0
-    full_rows = int((key[done] != pkey[done]).any(1).sum())
-    full_flags = int((over != pover).sum())
-    phase("kernel_main_shape", sources=len(pending), capacity=CAPACITY,
-          kernel_ms=main_ms, plain_on_gpu_ms=plain_ms,
+    want, pool_plain_ms = plain_ms(
+        lambda: sssp.pool_sssp_plain(adj, src, k - 1, CAPACITY)
+    )
+    r = row_mismatches((key, None, over), want)
+    checks.append(r)
+    phase("kernel_main_shape", seconds=time.monotonic() - t0,
+          sources=len(pending), capacity=CAPACITY, kernel_ms=main_ms,
+          plain_on_gpu_ms=pool_plain_ms,
           sources_per_s=len(pending) / (main_ms / 1e3),
-          flag_mismatch=full_flags, row_mismatch=full_rows,
-          overflow_frac=float(over.float().mean()))
-    if full_flags or full_rows:
-        raise SystemExit("kernel disagrees with its plain version at the main shape")
-    del key, over, pkey, pover, src
+          overflow_frac=float(over.float().mean()), **r)
+    check(not (r["flag_mismatch"] or r["row_mismatch"]),
+          "kernel disagrees with its plain version at the main shape")
+    over_sources = src[over.bool()].contiguous()  # the sources overflowing C=4
+    rows4, over4 = key, over
+    del want
 
-    # 4. Main path: the CLI on the card, then the host engine
+    # 4. Wide kernel vs plain version on the card: the C=4 overflow sources
+    t0 = time.monotonic()
+    nbr, nw = dg.device_buffers(device, adj_packed=False)
+    wide = []
+    cases = [("packed", adj, None, k - 1, cap, over_sources) for cap in WIDE_CAPACITIES]
+    cases += [("unpacked", nbr, nw, WIDE_UNPACKED_BOUND, cap, over_sources)
+              for cap in WIDE_CAPACITIES]
+    cases.append(("unpacked", nbr, nw, DEEP_BOUND, DEEP_CAPACITY,
+                  src[:N_FLAGSHIP_CHECK].contiguous()))
+    for layout, a, w, mw, cap, s in cases:
+        want, p_ms = plain_ms(lambda: sssp.pool_sssp_plain(
+            a, s, mw, cap, nw=w, pack_out=w is None))
+        for schedule in sssp.SCHEDULES:
+            def run():
+                return sssp.wide_sssp(a, s, mw, cap, nw=w, pack_out=w is None,
+                                      schedule=schedule)
+            got = run()
+            torch.cuda.synchronize()
+            r = dict(layout=layout, schedule=schedule, max_weight=mw,
+                     capacity=cap, sources=len(s), kernel_ms=kernel_ms(run, reps=3),
+                     plain_on_gpu_ms=p_ms, **row_mismatches(got, want))
+            phase("wide_vs_plain", **r)
+            wide.append(r)
+            check(not (r["flag_mismatch"] or r["row_mismatch"]),
+                  f"wide kernel disagrees with its plain version: {r}")
+        del want, got
+    wide_main = next(r for r in wide if r["layout"] == "packed"
+                     and r["schedule"] == "pool" and r["capacity"] == 256)
+    phase("wide_vs_plain_done", seconds=time.monotonic() - t0, cases=len(wide))
+
+    # 5. Compaction: the kernel against its plain version on the C=4 rows of
+    # all device sources, then the compact download against the full one
+    t0 = time.monotonic()
+    budget = rows4.numel() // 2  # half the slots: the valid ones fit
+    args4 = (rows4, over4, dg.sentinel, k - 1, budget)
+    vals, counts, total = sssp.compact_rows(*args4)
+    compact_ms = kernel_ms(lambda: sssp.compact_rows(*args4))
+    (pvals, pcounts, ptotal), compact_plain_ms = plain_ms(
+        lambda: sssp.compact_rows_plain(*args4)
+    )
+    n_valid = min(int(ptotal), budget)
+    compact_err = int((vals[:n_valid].long() - pvals[:n_valid].long()).abs().max())
+    check(int(total) == int(ptotal) and torch.equal(counts, pcounts)
+          and compact_err == 0, "compaction kernel disagrees with its plain version")
+    sssp.reset_kernel_launches()
+    t_fetch = time.monotonic()
+    full = sssp.batched_bounded_sssp_dispatch(dg, pending, k - 1, CAPACITY, device)
+    ftri, fover = full.fetch_candidates(dg, pending, in_mask)
+    full_s = time.monotonic() - t_fetch
+    t_fetch = time.monotonic()
+    comp = sssp.batched_bounded_sssp_dispatch(
+        dg, pending, k - 1, CAPACITY, device, compact=True, budget=budget
+    )
+    ctri, cover = comp.fetch_candidates(dg, pending, in_mask)
+    compact_s = time.monotonic() - t_fetch
+    torch.cuda.synchronize()
+    compact_launches = sssp.KERNEL_LAUNCHES["sssp_compact"]
+    same = np.array_equal(cover, fover) and all(
+        np.array_equal(getattr(ctri, c), getattr(ftri, c)) for c in ("u", "v", "d")
+    )
+    phase("compact_vs_full", seconds=time.monotonic() - t0, sources=len(pending),
+          capacity=CAPACITY, valid_slots=int(total), budget=budget,
+          kernel_ms=compact_ms, plain_on_gpu_ms=compact_plain_ms,
+          max_abs_err=compact_err, candidates=len(ctri), columns_equal=same,
+          bytes_full=full.bytes_fetched, bytes_compact=comp.bytes_fetched,
+          full_stage_s=full_s, compact_stage_s=compact_s,
+          compact_launches=compact_launches)
+    check(same and compact_launches == 1 and comp.bytes_fetched < full.bytes_fetched,
+          "the compact download differs from the full one")
+    del rows4, over4, vals, pvals, full, comp, ftri, ctri
+
+    # 6. Main path: the default CLI on the card, then the host engine
+    logging.getLogger("matchtigs_tpu_torch").setLevel(logging.WARNING)
+    want_kmers = np.unique(kmers.astype(np.uint64))
+
+    def run_cli(fa_in, kk, *options):
+        """(rc, launches, seconds, out store) of one CLI run."""
+        fa_out = Path(fa_in).with_name("out.fa")
+        sssp.reset_kernel_launches()
+        t = time.monotonic()
+        rc = cli_main(["--fa-in", str(fa_in), "-k", str(kk),
+                       "--greedytigs-fa-out", str(fa_out),
+                       "--log-level", "Warning", *options])
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t
+        launches = dict(sssp.KERNEL_LAUNCHES)
+        return rc, launches, seconds, read_fasta(fa_out)[0] if rc == 0 else None
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.monotonic()
+        fa_in = Path(tmp) / "unitigs.fa.gz"
+        write_fasta(fa_in, store)
+        rc, launches, cli_s, out_store = run_cli(fa_in, k)
+        check(rc == 0 and launches == {"sssp_pool": 1, "sssp_wide": 0, "sssp_compact": 0},
+              f"CLI rc {rc}, kernel launches {launches}")
+        cli_tigs, cli_len = len(out_store), int(out_store.offsets[-1])
+        got = spelled_kmer_set(out_store, k)
+        check(np.array_equal(got, want_kmers),
+              f"CLI output spells {len(got)} k-mers, input has {len(want_kmers)}")
+        phase("cli_device", seconds=time.monotonic() - t0, cli_s=cli_s,
+              kernel_launches=launches["sssp_pool"],
+              launches=launches, tigs=cli_tigs, cumulative_length=cli_len,
+              kmer_set_equal=True)
+        pool_launches = launches["sssp_pool"]
+
+        t0 = time.monotonic()
+        runs = {}
+        for engine in ("device", "host"):
+            gg = g.copy()
+            stats = SearchStats()
+            t_run = time.monotonic()
+            tigs = compute_greedytigs(gg, GreedytigConfig(k=k, engine=engine), stats)
+            torch.cuda.synchronize()
+            seconds = time.monotonic() - t_run
+            _, off = spell_walks_flat(gg, tigs, store, k)
+            runs[engine] = (tigs, seconds, stats, len(tigs), int(off[-1]))
+        d_tigs, d_s, d_stats, d_n, d_len = runs["device"]
+        h_tigs, h_s, _, h_n, h_len = runs["host"]
+        stage_kernel_s = d_stats.stage_kernel_times[0]
+        phase("greedy_device_vs_host", seconds=time.monotonic() - t0,
+              device_s=d_s, host_s=h_s,
+              device_stage_s=d_stats.stage_times[0], stage_kernel_s=stage_kernel_s,
+              stage_sources=d_stats.stage_sources[0],
+              stage_sources_per_s=d_stats.stage_sources[0] / stage_kernel_s,
+              stage_overflow_frac=d_stats.stage_overflow_frac[0],
+              host_routed=d_stats.host_routed, device_tigs=d_n, host_tigs=h_n,
+              device_len=d_len, host_len=h_len)
+        check((d_n, d_len) == (h_n, h_len) and (cli_tigs, cli_len) == (h_n, h_len),
+              "tig count or cumulative length differs from the host engine")
+        check(np.array_equal(d_tigs.flat, h_tigs.flat)
+              and np.array_equal(d_tigs.offsets, h_tigs.offsets),
+              "device-engine walks differ from the host engine's")
+        del runs, d_tigs, h_tigs
+
+        # 7. The ladder: the largest ball first (a ball above the last
+        # capacity makes the ladder raise, as in the JAX package), then the
+        # stages of a library run, then the CLI
+        t0 = time.monotonic()
+        ones = np.ones(dg.n_nodes + 1, dtype=np.int8)
+        balls = sssp.host_dijkstra_candidates(
+            dg, over_sources.cpu().numpy(), k - 1, ones
+        )
+        max_ball = int(np.bincount(balls.u).max()) + 1 if len(balls) else 1
+        del balls
+        check(max_ball <= MAX_BALL,
+              f"largest flagship ball {max_ball} exceeds the ladder's {MAX_BALL}")
+        stats = SearchStats()
+        compute_greedytigs(g.copy(), GreedytigConfig(k=k, overflow_mode="ladder"), stats)
+        capacities = [CAPACITY * 4 ** i for i in range(len(stats.stage_sources))]
+        rc, launches, ladder_s, out_store = run_cli(
+            fa_in, k, "--sssp-overflow-mode", "ladder"
+        )
+        check(rc == 0, f"ladder CLI rc {rc}")
+        n_tigs, n_len = len(out_store), int(out_store.offsets[-1])
+        got = spelled_kmer_set(out_store, k)
+        phase("cli_ladder", seconds=time.monotonic() - t0, cli_s=ladder_s,
+              max_ball=max_ball, stage_capacities=capacities,
+              stage_sources=stats.stage_sources,
+              stage_kernel_ms=[1e3 * s for s in stats.stage_kernel_times],
+              launches=launches, tigs=n_tigs, cumulative_length=n_len,
+              kmer_set_equal=bool(np.array_equal(got, want_kmers)))
+        check((n_tigs, n_len) == (h_n, h_len), "ladder tigs differ from the host engine")
+        check(np.array_equal(got, want_kmers), "ladder CLI output misses k-mers")
+        check(sum(launches.values()) >= len(capacities) >= 2,
+              f"ladder launches {launches} for {len(capacities)} stages")
+        wide_launches = launches["sssp_wide"]
+
+    # 8. k=131 on a string-generated input: the unpacked layouts
+    t0 = time.monotonic()
+    kstore, kset, kk = testing.make_unitig_store_strings(
+        genome_length=20000, k=131, seed=131, n_sequences=3
+    )
+    kg = build_bigraph_from_unitigs(kstore, kk)
+    hg = kg.copy()
+    host = compute_greedytigs(hg, GreedytigConfig(k=kk, engine="host"))
+    _, hoff = spell_walks_flat(hg, host, kstore, kk)
     with tempfile.TemporaryDirectory() as tmp:
         fa_in = Path(tmp) / "unitigs.fa.gz"
-        with gzip.open(fa_in, "wb", compresslevel=1) as f:
-            for i in range(len(store)):
-                f.write(b">%d\n%s\n" % (i, store.get_ascii(i)))
-        fa_out = Path(tmp) / "greedytigs.fa"
-        logging.getLogger("matchtigs_tpu_torch").setLevel(logging.WARNING)
-        sssp.KERNEL_LAUNCHES = 0
-        t0 = time.monotonic()
-        rc = cli_main(["--fa-in", str(fa_in), "-k", str(k),
-                       "--greedytigs-fa-out", str(fa_out),
-                       "--log-level", "Warning"])
-        torch.cuda.synchronize()
-        cli_s = time.monotonic() - t0
-        launches = sssp.KERNEL_LAUNCHES
-        if rc != 0 or launches < 1:
-            raise SystemExit(f"CLI rc {rc}, kernel launches {launches}")
-        out_store, _ = read_fasta(fa_out)
-        cli_tigs, cli_len = len(out_store), int(out_store.offsets[-1])
-        got = np.unique(testing.kmer_multiset_of_walk_seqs(
-            np.split(out_store.codes, out_store.offsets[1:-1]), k
-        ))
-        want = np.unique(kmers.astype(np.uint64))
-        if not np.array_equal(got, want):
-            raise SystemExit(
-                f"CLI output spells {len(got)} k-mers, input has {len(want)}"
-            )
-    phase("cli_device", seconds=cli_s, kernel_launches=launches,
-          tigs=cli_tigs, cumulative_length=cli_len, kmer_set_equal=True)
+        write_fasta(fa_in, kstore)
+        rc, launches, k131_s, out_store = run_cli(fa_in, kk)
+    check(rc == 0, f"k=131 CLI rc {rc}")
+    seqs = [out_store.get_ascii(i).decode() for i in range(len(out_store))]
+    rc_table = str.maketrans("ACGT", "TGCA")
+    spelled = {min(s[j:j + kk], s[j:j + kk][::-1].translate(rc_table))
+               for s in seqs for j in range(len(s) - kk + 1)}
+    phase("cli_k131", seconds=time.monotonic() - t0, cli_s=k131_s,
+          unitigs=len(kstore), launches=launches, tigs=len(out_store),
+          cumulative_length=int(out_store.offsets[-1]), host_tigs=len(host),
+          host_len=int(hoff[-1]), kmer_set_equal=spelled == kset)
+    check((len(out_store), int(out_store.offsets[-1])) == (len(host), int(hoff[-1])),
+          "k=131 tigs differ from the host engine")
+    check(spelled == kset and launches["sssp_wide"] >= 1,
+          f"k=131 CLI: k-mer set equal {spelled == kset}, launches {launches}")
+    wide_launches += launches["sssp_wide"]
 
-    runs = {}
-    for engine in ("device", "host"):
-        gg = g.copy()
-        stats = SearchStats()
-        t0 = time.monotonic()
-        tigs = compute_greedytigs(gg, GreedytigConfig(k=k, engine=engine), stats)
-        torch.cuda.synchronize()
-        seconds = time.monotonic() - t0
-        _, off = spell_walks_flat(gg, tigs, store, k)
-        runs[engine] = (tigs, seconds, stats, len(tigs), int(off[-1]))
-    d_tigs, d_s, d_stats, d_n, d_len = runs["device"]
-    h_tigs, h_s, _, h_n, h_len = runs["host"]
-    stage_kernel_s = d_stats.stage_kernel_times[0]
-    phase("greedy_device_vs_host", device_s=d_s, host_s=h_s,
-          device_stage_s=d_stats.stage_times[0], stage_kernel_s=stage_kernel_s,
-          stage_sources=d_stats.stage_sources[0],
-          stage_sources_per_s=d_stats.stage_sources[0] / stage_kernel_s,
-          stage_overflow_frac=d_stats.stage_overflow_frac[0],
-          host_routed=d_stats.host_routed, device_tigs=d_n, host_tigs=h_n,
-          device_len=d_len, host_len=h_len)
-    if (d_n, d_len) != (h_n, h_len) or (cli_tigs, cli_len) != (h_n, h_len):
-        raise SystemExit("tig count or cumulative length differs from the host engine")
-    if not (np.array_equal(d_tigs.flat, h_tigs.flat)
-            and np.array_equal(d_tigs.offsets, h_tigs.offsets)):
-        raise SystemExit("device-engine walks differ from the host engine's")
-
-    print(json.dumps({"kernels": [{
-        "name": "sssp_pool",
-        "route": "cuda",
-        "source": "matchtigs_tpu_torch/csrc/sssp_pool.cu",
-        "replaces": "matchtigs_tpu/ops/sssp.py:299",
-        "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in checks),
-        "ms": main_ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+    phase("total", seconds=time.monotonic() - t_start)
+    print(json.dumps({"kernels": [
+        {
+            "name": "sssp_pool",
+            "route": "cuda",
+            "source": "matchtigs_tpu_torch/csrc/sssp_pool.cu",
+            "replaces": "matchtigs_tpu/ops/sssp.py:299",
+            "launches": pool_launches,
+            "max_abs_err": max(c["max_abs_err"] for c in checks),
+            "ms": main_ms,
+            "plain_ms": pool_plain_ms,
+        },
+        {
+            "name": "sssp_wide",
+            "route": "cuda",
+            "source": "matchtigs_tpu_torch/csrc/sssp_wide.cu",
+            "replaces": "matchtigs_tpu/ops/sssp.py:133",
+            "launches": wide_launches,
+            "max_abs_err": max(r["max_abs_err"] for r in wide),
+            "ms": wide_main["kernel_ms"],
+            "plain_ms": wide_main["plain_on_gpu_ms"],
+        },
+        {
+            "name": "sssp_compact",
+            "route": "cuda",
+            "source": "matchtigs_tpu_torch/csrc/sssp_compact.cu",
+            "replaces": "matchtigs_tpu/ops/sssp.py:448",
+            "launches": compact_launches,
+            "max_abs_err": compact_err,
+            "ms": compact_ms,
+            "plain_ms": compact_plain_ms,
+        },
+    ]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

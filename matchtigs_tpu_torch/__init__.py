@@ -1,10 +1,12 @@
 """matchtigs_tpu_torch: greedy matchtigs on PyTorch + CUDA.
 
 The port of ``matchtigs_tpu`` (JAX) to NVIDIA Hopper: the bounded
-shortest-path search of greedy matchtigs runs as a hand-written CUDA
-kernel (``csrc/sssp_pool.cu``); the host layers (io, graph, matching,
-Euler decomposition, the native C++ library) are copies of the JAX
-package's, so this package imports neither ``jax`` nor ``matchtigs_tpu``.
+shortest-path search of greedy matchtigs runs as hand-written CUDA
+kernels (``csrc/sssp_pool.cu``, ``csrc/sssp_wide.cu``,
+``csrc/sssp_compact.cu``) in every single-device mode; the host layers
+(io, graph, matching, Euler decomposition, the native C++ library) are
+copies of the JAX package's, so this package imports neither ``jax`` nor
+``matchtigs_tpu``.
 """
 
 from .graph.bigraph import Bigraph

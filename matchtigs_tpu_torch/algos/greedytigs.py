@@ -1,14 +1,15 @@
-# Ported from matchtigs_tpu/algos/greedytigs.py: one kernel launch overlapped with the host-routed Dijkstra; no mesh, no device ladder.
+# Ported from matchtigs_tpu/algos/greedytigs.py: the single-device stage with its capacity ladder, overlapped with the host-routed Dijkstra; no mesh.
 """Greedy matchtigs: near-optimal tigs with bounded k-mer repetition.
 
 Capability-equivalent of ``GreedytigAlgorithm``
 (upstream src/implementation/greedytigs/mod.rs:200-801):
 
 1. imbalance scan (vectorized) -> out-nodes / in-node target mask;
-2. bounded shortest paths from every out-node: the CUDA kernel of
+2. bounded shortest paths from every out-node: the CUDA kernels of
    :mod:`matchtigs_tpu_torch.ops.sssp` for most sources, the native host
-   Dijkstra for dense-tangle sources (concurrently with the kernel) and
-   for the sources whose ball overflowed the kernel's working set;
+   Dijkstra for dense-tangle sources (concurrently with the first stage);
+   sources whose ball overflowed a stage's working set finish on the host
+   Dijkstra or re-run on the device at 4x capacity (the ladder);
 3. deterministic global greedy matching over the candidate triples
    (:func:`matchtigs_tpu_torch.ops.matching.greedy_accept`);
 4. accepted paths become cheap dummy biedges (weight = distance < k); the
@@ -37,17 +38,25 @@ logger = logging.getLogger(__name__)
 @dataclass
 class GreedytigConfig:
     k: int
-    # Working-set capacity C of the device stage (one of
-    # ops.sssp.CAPACITIES).  Ball sizes are heavily skewed; sources whose
-    # ball exceeds C finish on the host Dijkstra.  Deep-ball regimes
+    # Working-set capacity C of the first device stage (any C >= 1; the
+    # register kernel serves ops.sssp.CAPACITIES, the wide kernel the
+    # rest).  Ball sizes are heavily skewed; sources whose ball exceeds C
+    # finish on the host Dijkstra or climb the ladder.  Deep-ball regimes
     # (k >= 63) should raise this.
     initial_capacity: int = 4
+    # The ladder's last capacity: sources still overflowing there raise.
+    max_capacity: int = 1 << 16
     # Multi-device sharding is not ported: "auto" and False run on one
     # device, True raises.
     use_mesh: bool | str = "auto"
     # Overflow handling: "host" finishes capacity-overflow sources with
-    # the native C++ Dijkstra.  The device capacity ladder is not ported.
+    # the native C++ Dijkstra; "ladder" re-runs them on the device at 4x
+    # capacity per stage until none overflows.
     overflow_mode: str = "host"
+    # Device scheduler: "pool" claims sources from a device cursor as
+    # blocks free up; "batch" assigns them statically (the reference's
+    # batch schedule).  The rows, and so the tigs, are the same.
+    device_schedule: str = "pool"
     # Sources whose minimum incident edge weight is <= this threshold are
     # routed straight to the native host Dijkstra, running on the CPU
     # while the kernel runs (they sit in dense tangles with deep multi-hop
@@ -152,10 +161,13 @@ def _check_config(config: GreedytigConfig) -> None:
             "use_mesh=True: the multi-device layer (K6/K7 on "
             "torch.distributed) is a ROADMAP item of the port"
         )
-    if config.overflow_mode != "host":
-        raise NotImplementedError(
-            f"overflow_mode={config.overflow_mode!r}: the device capacity "
-            "ladder (K3) is a ROADMAP item of the port"
+    if config.overflow_mode not in ("host", "ladder"):
+        raise ValueError(f"unknown overflow_mode: {config.overflow_mode!r}")
+    if config.device_schedule not in ("pool", "batch"):
+        raise ValueError(f"unknown device_schedule: {config.device_schedule!r}")
+    if config.initial_capacity < 1:
+        raise ValueError(
+            f"initial_capacity must be >= 1, got {config.initial_capacity}"
         )
     if config.engine not in ("auto", "device", "host"):
         raise ValueError(f"unknown engine: {config.engine!r}")
@@ -261,8 +273,10 @@ def collect_candidates(
     dg = build_device_graph(g)
     logger.info("Device graph build: %.2fs", time.monotonic() - t_phase)
     device = _stage_device()
-    # Upload the adjacency first (once per graph and device).
-    dg.device_buffers(device)
+    # Upload the adjacency first (once per graph, device and layout).
+    from ..ops.sssp import _can_pack_adj, batched_bounded_sssp_dispatch
+
+    dg.device_buffers(device, adj_packed=_can_pack_adj(dg, k - 1))
     chunks: list[Candidates] = []
 
     pending, hard_sources = split_device_sources(
@@ -276,18 +290,20 @@ def collect_candidates(
         )
     capacity = config.initial_capacity
 
-    # One asynchronous launch; the host-routed Dijkstra runs on the CPU
-    # while the device computes; then one synchronizing copy back.
-    from ..ops.sssp import batched_bounded_sssp_dispatch
-
-    t_dev = time.monotonic()
-    stage = None
-    if len(pending):
+    def launch():
+        """One asynchronous stage over ``pending`` at ``capacity``."""
         stats.stage_sources.append(len(pending))
         stats.capacity_final = capacity
-        stage = batched_bounded_sssp_dispatch(
-            dg, pending, k - 1, capacity, device
+        return time.monotonic(), batched_bounded_sssp_dispatch(
+            dg, pending, k - 1, capacity, device,
+            schedule=config.device_schedule,
         )
+
+    # One stage per capacity: an asynchronous launch and one synchronizing
+    # copy back; the host-routed Dijkstra runs on the CPU while the first
+    # stage computes.  Overflowed sources finish on the host, or go to the
+    # next stage at 4x capacity.
+    stage = launch() if len(pending) else None
     if hard_sources is not None:
         t_h = time.monotonic()
         res = host_search(
@@ -299,13 +315,14 @@ def collect_candidates(
             "Host-routed Dijkstra (%d sources) during the device stage: "
             "%.2fs", len(hard_sources), time.monotonic() - t_h,
         )
-    if stage is not None:
-        tri, over = stage.fetch_candidates(dg, pending, in_mask)
+    while stage is not None:
+        t_dev, handle = stage
+        tri, over = handle.fetch_candidates(dg, pending, in_mask)
         stage_t = time.monotonic() - t_dev
-        kernel_s = stage.kernel_seconds()
+        kernel_s = handle.kernel_seconds()
         logger.info(
-            "Device stage: %d sources in %.2fs (kernel %s)",
-            len(pending), stage_t,
+            "Device stage: %d sources at capacity %d in %.2fs (kernel %s)",
+            len(pending), capacity, stage_t,
             "not measured" if kernel_s is None else f"{kernel_s:.4f}s",
         )
         stats.stage_times.append(stage_t)
@@ -318,14 +335,17 @@ def collect_candidates(
         )
         if len(tri):
             chunks.append(tri)
-        if n_overflow:
+        pending = pending[over]
+        stage = None
+        if not n_overflow:
+            break
+        stats.retries += 1
+        if config.overflow_mode == "host":
             # Finish the heavy tail with the native host Dijkstra.
-            stats.retries += 1
             stats.stage_sources.append(n_overflow)
             t_tail = time.monotonic()
             tail = host_search(
-                dg, pending[over], k - 1, in_mask,
-                n_threads=config.host_threads,
+                dg, pending, k - 1, in_mask, n_threads=config.host_threads
             )
             if len(tail):
                 chunks.append(tail)
@@ -333,6 +353,17 @@ def collect_candidates(
                 "Finished %d overflowed sources on host in %.2fs",
                 n_overflow, time.monotonic() - t_tail,
             )
+            break
+        if capacity >= config.max_capacity:
+            raise RuntimeError(
+                f"SSSP capacity {capacity} exhausted for {n_overflow} sources"
+            )
+        capacity *= 4
+        logger.info(
+            "Retrying %d overflowed sources with capacity %d",
+            n_overflow, capacity,
+        )
+        stage = launch()
 
     if return_chunks:
         stats.candidates = sum(len(c) for c in chunks)

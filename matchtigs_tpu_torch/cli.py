@@ -41,6 +41,13 @@ _NOT_PORTED = [
 ]
 
 
+def _positive_int(text: str) -> int:
+    value = int(text)
+    if value < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {value}")
+    return value
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="matchtigs-tpu-torch",
@@ -72,17 +79,17 @@ def build_parser() -> argparse.ArgumentParser:
     # at dispatch time, so the CLI never shadows the dataclass defaults.
     p.add_argument(
         "--sssp-initial-capacity",
-        type=int,
+        type=_positive_int,
         default=None,
-        help="per-source working-set capacity of the device search "
-        f"(default: {GreedytigConfig.initial_capacity})",
+        help="per-source working-set capacity of the first device search "
+        f"stage, any C >= 1 (default: {GreedytigConfig.initial_capacity})",
     )
     p.add_argument(
         "--sssp-overflow-mode",
         choices=("host", "ladder"),
         default="host",
-        help="finish capacity-overflow sources on the host (native Dijkstra); "
-        "the device ladder is not ported yet",
+        help="finish capacity-overflow sources on the host (native Dijkstra) "
+        "or retry on device with 4x capacity per stage",
     )
     p.add_argument(
         "--host-route-threshold",
@@ -244,7 +251,8 @@ def main(argv: list[str] | None = None) -> int:
         logger.info(
             "Staged-parallelism flags map to the device working-set "
             "capacity (--sssp-initial-capacity); searches that exceed it "
-            "finish on the host Dijkstra"
+            "finish on the host Dijkstra or climb the capacity ladder "
+            "(--sssp-overflow-mode)"
         )
 
     if opts.debug_print_graph:

@@ -50,7 +50,7 @@ class DeviceGraph:
     deg_pad: int
     to_dev: np.ndarray | None = None  # int32 [N]: original -> device id
     to_orig: np.ndarray | None = None  # int32 [N]: device -> original id
-    # packed adjacency per torch device, uploaded on first use
+    # adjacency per (torch device, layout), uploaded on first use
     _adj_on: dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
@@ -73,18 +73,26 @@ class DeviceGraph:
             self.nw, ADJ_W_MASK
         ).astype(np.int32)
 
-    def device_buffers(self, device: torch.device | str) -> torch.Tensor:
-        """The packed adjacency as an int32 tensor on ``device``, uploaded
-        once per graph and device: repeated stages reuse it instead of
-        re-shipping 16 bytes per node.  The unpacked ``(nbr, nw)`` pair
-        serves only searches bounded at or above ADJ_W_MASK (k >= 128),
-        which the port does not run yet."""
-        key = str(torch.device(device))
-        adj = self._adj_on.get(key)
-        if adj is None:
-            adj = torch.from_numpy(self.packed_adjacency()).to(device)
-            self._adj_on[key] = adj
-        return adj
+    def device_buffers(self, device: torch.device | str, adj_packed: bool = True):
+        """The adjacency on ``device``, uploaded once per graph, device and
+        layout: repeated stages reuse it instead of re-shipping it.
+
+        ``adj_packed`` returns the packed int32 ``[N + 1, deg_pad]`` tensor;
+        ``adj_packed=False`` returns the unpacked int32 ``(nbr, nw)`` pair,
+        which serves searches bounded at or above ADJ_W_MASK (k >= 128) and
+        graphs whose node ids exceed the packed layout."""
+        key = (str(torch.device(device)), adj_packed)
+        buf = self._adj_on.get(key)
+        if buf is None:
+            if adj_packed:
+                buf = torch.from_numpy(self.packed_adjacency()).to(device)
+            else:
+                buf = tuple(
+                    torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+                    for a in (self.nbr, self.nw)
+                )
+            self._adj_on[key] = buf
+        return buf
 
     def map_sources(self, sources: np.ndarray) -> np.ndarray:
         return sources if self.to_dev is None else self.to_dev[sources]

@@ -1,25 +1,37 @@
-# Ported from matchtigs_tpu/ops/sssp.py: the pool stage is csrc/sssp_pool.cu plus its plain torch version; the host engines are copies.
+# Ported from matchtigs_tpu/ops/sssp.py: the search stage is csrc/sssp_pool.cu, csrc/sssp_wide.cu and csrc/sssp_compact.cu, each beside its plain torch version; the host engines are copies.
 """Batched k-bounded multi-source shortest paths (the hot kernel).
 
 Replacement for the reference's per-source binary-heap Dijkstra
 (``traitgraph-algo``; call sites upstream
 src/implementation/greedytigs/mod.rs:324-341): every out-node's bounded
-ball (all nodes at distance <= k-1) is searched on the device, with a
-working set of C (node, dist) slots per source.
+ball (all nodes at distance <= max_weight) is searched on the device,
+with a working set of C (node, dist) slots per source.
 
-The stage's output contract, shared by the CUDA kernel
-(``csrc/sssp_pool.cu``) and its plain torch version:
+The stage's output contract, shared by the CUDA kernels and their plain
+torch version (:func:`pool_sssp_plain`):
 
-- packed row: for a source whose ball has at most C nodes (the source
-  itself at 0 included) the row holds exactly that ball as
-  ``(node << DIST_BITS) | dist``, sorted by (dist, node), with empty
-  slots ``(sentinel << DIST_BITS) | 127``;
+- row: for a source whose ball has at most C nodes (the source itself at
+  0 included) the row holds exactly that ball sorted by (dist, node);
+  packed rows hold ``(node << DIST_BITS) | dist`` with empty slots
+  ``(sentinel << DIST_BITS) | 127``, unpacked rows hold ``nodes`` and
+  ``dist`` with empty slots ``(sentinel, INF)`` (in both schedules);
 - overflow flag: set iff the ball has more than C nodes; such rows are
-  dropped downstream and their sources finish on the host Dijkstra.
+  unspecified and their sources finish on the host Dijkstra or at the
+  next capacity of the ladder.
+
+Packed rows need max_weight < 126 and node ids < 2^24; the packed
+adjacency needs max_weight < 127.  Outside them (k >= 128, huge graphs)
+the stage runs on the unpacked ``(nbr, nw)`` pair with unpacked rows.
+
+Routing: the pool schedule over the packed adjacency with four slots per
+row and C in ``CAPACITIES`` runs the register kernel ``csrc/sssp_pool.cu``;
+every other capacity, degree, layout and the batch schedule run the wide
+kernel ``csrc/sssp_wide.cu``.  ``csrc/sssp_compact.cu`` compacts a packed
+stage's valid slots on the device for a smaller download.
 
 Bellman-Ford sets only grow and edge weights are >= 1, so both the
-round-by-round plain version and the kernel's per-source Dijkstra meet
-it bit for bit.
+round-by-round plain version and the kernels' per-source searches meet
+the contract bit for bit.
 """
 
 from __future__ import annotations
@@ -39,20 +51,28 @@ from .device_graph import ADJ_W_BITS, ADJ_W_MASK, DeviceGraph
 INF = np.int32(1 << 20)  # unpacked empty-slot distance
 DIST_BITS = 7  # distances < 128 (k <= 127); nodes < 2^24 for packed rows
 DIST_CAP = (1 << DIST_BITS) - 1  # empty-slot distance in packed rows
-CAPACITIES = (4, 8, 16, 32, 64)  # the kernel's compiled working-set sizes
+CAPACITIES = (4, 8, 16, 32, 64)  # the register kernel's compiled capacities
+MAX_WIDE_CAPACITY = 1 << 20  # the wide kernel's largest capacity
+SCHEDULES = ("pool", "batch")
 
-# Launches of the CUDA kernel by pool_sssp, for runs that must show the
-# main path went through it.
-KERNEL_LAUNCHES = 0
+# Launches per kernel by its wrapper, for runs that must show the main
+# path went through it.
+KERNEL_LAUNCHES = {"sssp_pool": 0, "sssp_wide": 0, "sssp_compact": 0}
 
 _PKG = Path(__file__).resolve().parent.parent
-_KERNEL_SRC = _PKG / "csrc" / "sssp_pool.cu"
+_CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-_kernel_lib: ctypes.CDLL | None = None
+_kernel_libs: dict[str, ctypes.CDLL] | None = None
+_PLAIN_CHUNK = 1 << 24  # working-set elements per chunk of the plain version
+
+
+def reset_kernel_launches() -> None:
+    for name in KERNEL_LAUNCHES:
+        KERNEL_LAUNCHES[name] = 0
 
 
 def _can_pack_out(dg: DeviceGraph, max_weight: int) -> bool:
@@ -71,56 +91,91 @@ def _can_pack_adj(dg: DeviceGraph, max_weight: int) -> bool:
     return max_weight < ADJ_W_MASK and dg.can_pack_adj
 
 
-def build_kernels() -> ctypes.CDLL:
-    """Compile ``csrc/sssp_pool.cu`` with nvcc (once per source hash, into
-    the package's ``build/``) and load it."""
-    global _kernel_lib
-    if _kernel_lib is not None:
-        return _kernel_lib
-    h = hashlib.sha256(_KERNEL_SRC.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    lib_path = _BUILD_DIR / f"sssp_pool_{h.hexdigest()[:16]}.so"
-    if not lib_path.exists():
+def build_kernels() -> dict[str, ctypes.CDLL]:
+    """Compile every ``csrc/*.cu`` with nvcc, one process per source, all
+    started together, into the package's ``build/<hash>/`` (one hash over
+    all sources and the flags), and load them: {source stem: library}."""
+    global _kernel_libs
+    if _kernel_libs is not None:
+        return _kernel_libs
+    sources = sorted(_CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    out_dir = _BUILD_DIR / h.hexdigest()[:16]
+    todo = [s for s in sources if not (out_dir / f"{s.stem}.so").exists()]
+    if todo:
         from torch.utils.cpp_extension import CUDA_HOME
 
         nvcc = Path(CUDA_HOME or "") / "bin" / "nvcc"
         if not CUDA_HOME or not nvcc.exists():
             raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".so.build{os.getpid()}")
-        proc = subprocess.run(
-            [str(nvcc), *NVCC_FLAGS, "-o", str(tmp), str(_KERNEL_SRC)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed: {proc.stderr[-4000:]}")
-        os.replace(tmp, lib_path)  # atomic against concurrent builds
-    lib = ctypes.CDLL(str(lib_path))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.sssp_pool_launch.restype = ci
-    lib.sssp_pool_launch.argtypes = [
-        vp, ci, vp, ci, ci, ci, vp, vp, vp, vp,
-    ]
-    _kernel_lib = lib
-    return lib
+        out_dir.mkdir(parents=True, exist_ok=True)
+        procs = []
+        for src in todo:
+            tmp = out_dir / f"{src.stem}.so.build{os.getpid()}"
+            procs.append((src, tmp, subprocess.Popen(
+                [str(nvcc), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )))
+        errors = []
+        for src, tmp, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                errors.append(f"{src.name}: {err[-4000:]}")
+            else:
+                os.replace(tmp, out_dir / f"{src.stem}.so")  # atomic
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    libs = {s.stem: ctypes.CDLL(str(out_dir / f"{s.stem}.so")) for s in sources}
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    pi, pll = ctypes.POINTER(ci), ctypes.POINTER(ll)
+    for fn, args in (
+        (libs["sssp_pool"].sssp_pool_launch, [vp, ci, vp, ci, ci, ci, vp, vp, vp, vp]),
+        (libs["sssp_wide"].sssp_wide_plan, [ci, ci, pi, pi, pll, pll]),
+        (libs["sssp_wide"].sssp_wide_launch, [
+            vp, vp, ci, ci, vp, ci, ci, ci, vp, vp, vp, vp, vp, ci, ci, ll, ll, vp,
+        ]),
+        (libs["sssp_compact"].sssp_compact_launch, [
+            vp, vp, ci, ci, ci, ci, ll, vp, vp, ci, vp, vp, vp, vp,
+        ]),
+    ):
+        fn.restype = ci
+        fn.argtypes = args
+    _kernel_libs = libs
+    return libs
 
 
-def _check_pool_args(adj, sources, max_weight: int, capacity: int) -> None:
-    if capacity not in CAPACITIES:
-        raise ValueError(f"capacity {capacity} not in {CAPACITIES}")
-    if adj.dtype != torch.int32 or adj.dim() != 2 or adj.shape[1] != 4:
-        raise ValueError("adj must be the int32 [N+1, 4] packed adjacency")
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _check_stage_args(adj, nw, sources, max_weight: int, capacity: int,
+                      pack_out: bool) -> None:
+    """What every search entry takes: int32 contiguous operands on one
+    device, a capacity >= 1 and a bound the layouts can hold."""
+    if capacity < 1:
+        raise ValueError(f"capacity must be >= 1, got {capacity}")
+    if adj.dtype != torch.int32 or adj.dim() != 2:
+        raise ValueError("adj must be an int32 [N+1, deg] adjacency")
     if sources.dtype != torch.int32 or sources.dim() != 1:
         raise ValueError("sources must be a 1-D int32 tensor")
-    if not (adj.is_contiguous() and sources.is_contiguous()):
-        raise ValueError("adj and sources must be contiguous")
-    if adj.device != sources.device:
-        raise ValueError("adj and sources must be on one device")
-    if not 0 <= max_weight < ADJ_W_MASK:
-        raise ValueError(f"max_weight must be in [0, {ADJ_W_MASK})")
-    if adj.shape[0] >= (1 << (31 - DIST_BITS)):
-        raise ValueError("node ids exceed the packed-row layout")
+    operands = (adj, sources) if nw is None else (adj, nw, sources)
+    if nw is not None and (nw.dtype != torch.int32 or nw.shape != adj.shape):
+        raise ValueError("nw must be int32 with the shape of nbr")
+    if not all(t.is_contiguous() for t in operands):
+        raise ValueError("adj, nw and sources must be contiguous")
+    if any(t.device != adj.device for t in operands):
+        raise ValueError("adj, nw and sources must be on one device")
+    bound = ADJ_W_MASK if nw is None else int(INF)
+    if not 0 <= max_weight < bound:
+        raise ValueError(f"max_weight must be in [0, {bound}) for this adjacency")
+    if nw is None and adj.shape[0] > (1 << (31 - ADJ_W_BITS)):
+        raise ValueError("node ids exceed the packed adjacency layout")
+    if pack_out and (max_weight >= DIST_CAP or adj.shape[0] >= (1 << (31 - DIST_BITS))):
+        raise ValueError("packed rows need max_weight < 126 and node ids < 2^24")
 
 
 def pool_sssp(
@@ -130,19 +185,23 @@ def pool_sssp(
     capacity: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Bounded balls of ``sources`` over the packed adjacency ``adj``
-    (int32 [N+1, 4], row N the sentinel row); sources are ids in [0, N].
+    (int32 [N+1, deg], row N the sentinel row); sources are ids in [0, N].
 
     Returns (packed rows int32 [S, C], overflow uint8 [S]) on the input's
     device, under the module's output contract.  A CUDA tensor launches
-    the kernel on the current stream without synchronizing; a CPU tensor
-    runs :func:`pool_sssp_plain`."""
-    global KERNEL_LAUNCHES
-    _check_pool_args(adj, sources, max_weight, capacity)
+    ``csrc/sssp_pool.cu`` when deg == 4 and C is in ``CAPACITIES``, else the
+    wide kernel's pool schedule, on the current stream without
+    synchronizing; a CPU tensor runs :func:`pool_sssp_plain`."""
+    _check_stage_args(adj, None, sources, max_weight, capacity, True)
     if adj.device.type == "cpu":
-        return pool_sssp_plain(adj, sources, max_weight, capacity)
+        key, _, over = pool_sssp_plain(adj, sources, max_weight, capacity)
+        return key, over
+    if adj.shape[1] != 4 or capacity not in CAPACITIES:
+        key, _, over = wide_sssp(adj, sources, max_weight, capacity)
+        return key, over
     if adj.device.type != "cuda":
         raise ValueError(f"unsupported device {adj.device}")
-    lib = build_kernels()
+    lib = build_kernels()["sssp_pool"]
     S = sources.shape[0]
     out = torch.empty((S, capacity), dtype=torch.int32, device=adj.device)
     over = torch.empty((S,), dtype=torch.uint8, device=adj.device)
@@ -158,38 +217,128 @@ def pool_sssp(
         )
     if err != 0:
         raise RuntimeError(f"sssp_pool_launch failed: cudaError {err}")
-    KERNEL_LAUNCHES += 1
+    KERNEL_LAUNCHES["sssp_pool"] += 1
     return out, over
 
 
-def _relax_round(adj, nodes, dist, max_weight: int):
-    """One bounded relaxation round on an [S, C] working set (the torch
-    form of the reference package's ``_relax_round``): expansion gather,
-    per-node min-dedup by a (node, dist) sort, compaction to the C
-    closest by a (dist, node) sort.  Returns (nodes, dist, overflow):
-    overflow marks rows holding a (C+1)-th valid entry."""
+def wide_sssp(
+    adj: torch.Tensor,
+    sources: torch.Tensor,
+    max_weight: int,
+    capacity: int,
+    *,
+    nw: torch.Tensor | None = None,
+    pack_out: bool = True,
+    schedule: str = "pool",
+):
+    """The wide kernel (``csrc/sssp_wide.cu``): bounded balls at any
+    capacity 1 <= C <= MAX_WIDE_CAPACITY over the packed adjacency
+    ``adj`` (int32 [N+1, deg]) or, with ``nw``, the unpacked pair
+    ``(adj, nw)``.
+
+    Returns (rows, dist, overflow uint8 [S]) under the module's output
+    contract: packed rows and ``dist=None`` with ``pack_out``, else the
+    nodes and distances (empty slots ``(sentinel, INF)``).  ``schedule``
+    "pool" claims sources from a device cursor, "batch" assigns them to
+    blocks statically (the reference's batch schedule); the rows are the same.  A CUDA
+    tensor launches on the current stream without synchronizing; a CPU
+    tensor runs :func:`pool_sssp_plain`."""
+    _check_stage_args(adj, nw, sources, max_weight, capacity, pack_out)
+    if schedule not in SCHEDULES:
+        raise ValueError(f"unknown schedule: {schedule!r}")
+    if capacity > MAX_WIDE_CAPACITY:
+        raise ValueError(f"capacity {capacity} above {MAX_WIDE_CAPACITY}")
+    if adj.device.type == "cpu":
+        return pool_sssp_plain(
+            adj, sources, max_weight, capacity, nw=nw, pack_out=pack_out
+        )
+    if adj.device.type != "cuda":
+        raise ValueError(f"unsupported device {adj.device}")
+    lib = build_kernels()["sssp_wide"]
+    S, C, dev = sources.shape[0], capacity, adj.device
+    out_a = torch.empty((S, C), dtype=torch.int32, device=dev)
+    out_b = None if pack_out else torch.empty((S, C), dtype=torch.int32, device=dev)
+    over = torch.empty((S,), dtype=torch.uint8, device=dev)
+    if S == 0:
+        return out_a, out_b, over
+    grid, block = ctypes.c_int(), ctypes.c_int()
+    smem, slab = ctypes.c_longlong(), ctypes.c_longlong()
+    with torch.cuda.device(dev):
+        err = lib.sssp_wide_plan(
+            C, S, ctypes.byref(grid), ctypes.byref(block), ctypes.byref(smem),
+            ctypes.byref(slab),
+        )
+        if err != 0:
+            raise RuntimeError(f"sssp_wide_plan failed: cudaError {err}")
+        scratch = (
+            torch.empty((grid.value * slab.value,), dtype=torch.int32, device=dev)
+            if slab.value else None
+        )
+        cursor = (
+            torch.zeros((1,), dtype=torch.int32, device=dev)
+            if schedule == "pool" else None
+        )
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.sssp_wide_launch(
+            adj.data_ptr(), _ptr(nw), adj.shape[0] - 1, adj.shape[1],
+            sources.data_ptr(), S, int(max_weight), C, out_a.data_ptr(),
+            _ptr(out_b), over.data_ptr(), _ptr(cursor), _ptr(scratch),
+            grid.value, block.value, smem.value, slab.value, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"sssp_wide_launch failed: cudaError {err}")
+    KERNEL_LAUNCHES["sssp_wide"] += 1
+    return out_a, out_b, over
+
+
+def _relax_round(adj, nw, nodes, dist, max_weight: int):
+    """One bounded relaxation round on an int64 [S, C] working set with
+    empty slots (sentinel, INF) (the torch form of the reference package's
+    ``_relax_round``): expansion gather, per-node min-dedup by a
+    (node << 32 | dist) sort, compaction to the C closest by a
+    (dist << 32 | node) sort.  Returns (nodes, dist, overflow): overflow
+    marks rows holding a (C+1)-th valid entry."""
     S, C = nodes.shape
     sentinel = adj.shape[0] - 1
     live = (dist <= max_weight)[:, :, None]
-    a = adj[nodes.long()]  # [S, C, 4]
-    nn = torch.where(live, a >> ADJ_W_BITS, sentinel)
-    nd = dist[:, :, None] + (a & ADJ_W_MASK)
+    if nw is None:
+        a = adj[nodes]  # [S, C, deg]
+        nn, w = a >> ADJ_W_BITS, a & ADJ_W_MASK
+    else:
+        nn, w = adj[nodes], nw[nodes]
+    nn = torch.where(live, nn.long(), sentinel)
+    nd = dist[:, :, None] + w
     ok = (nn != sentinel) & (nd <= max_weight)
     all_n = torch.cat([nodes, torch.where(ok, nn, sentinel).reshape(S, -1)], 1)
-    all_d = torch.cat([dist, torch.where(ok, nd, DIST_CAP).reshape(S, -1)], 1)
+    all_d = torch.cat([dist, torch.where(ok, nd, int(INF)).reshape(S, -1)], 1)
 
-    key = (all_n.long() << DIST_BITS) | all_d.long()
-    key, _ = torch.sort(key, dim=1)
-    sn, sd = key >> DIST_BITS, key & DIST_CAP
+    key, _ = torch.sort((all_n << 32) | all_d, dim=1)
+    sn, sd = key >> 32, key & 0xFFFFFFFF
     first = torch.ones_like(sn, dtype=torch.bool)
     first[:, 1:] = sn[:, 1:] != sn[:, :-1]
-    keep = first & (sd < DIST_CAP) & (sn != sentinel)
-    sd = torch.where(keep, sd, DIST_CAP)
+    keep = first & (sd <= max_weight) & (sn != sentinel)
+    sd = torch.where(keep, sd, int(INF))
     sn = torch.where(keep, sn, sentinel)
 
     key, _ = torch.sort((sd << 32) | sn, dim=1)
-    dn, dd = (key & 0xFFFFFFFF).int(), (key >> 32).int()
-    return dn[:, :C], dd[:, :C], dd[:, C] < DIST_CAP
+    dn, dd = key & 0xFFFFFFFF, key >> 32
+    return dn[:, :C], dd[:, :C], dd[:, C] <= max_weight
+
+
+def _fixpoint(adj, nw, nodes, dist, over, max_weight: int) -> None:
+    """Relaxation rounds on the rows of ``nodes``/``dist``/``over`` (in
+    place) until each row stops changing (fixpoint) or overflows.  A row
+    still changing after max_weight + 2 rounds is flagged overflow, the
+    reference's defensive round cap."""
+    active = torch.nonzero(~over).flatten()
+    for _ in range(max_weight + 2):
+        if active.numel() == 0:
+            break
+        nn, nd, ov = _relax_round(adj, nw, nodes[active], dist[active], max_weight)
+        changed = (nn != nodes[active]).any(1) | (nd != dist[active]).any(1)
+        nodes[active], dist[active], over[active] = nn, nd, ov
+        active = active[changed & ~ov]
+    over[active] = True  # round cap
 
 
 def pool_sssp_plain(
@@ -197,57 +346,161 @@ def pool_sssp_plain(
     sources: torch.Tensor,
     max_weight: int,
     capacity: int,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain torch version of :func:`pool_sssp`: each row runs relaxation
-    rounds until its working set stops changing (fixpoint) or overflows.
-    A row still changing after max_weight + 1 rounds is flagged overflow,
-    the reference's defensive round cap."""
-    _check_pool_args(adj, sources, max_weight, capacity)
+    *,
+    nw: torch.Tensor | None = None,
+    pack_out: bool = True,
+):
+    """Plain torch version of the search stage (:func:`pool_sssp` and
+    :func:`wide_sssp`, either schedule): any capacity, any degree, the
+    packed adjacency or the unpacked pair ``(adj, nw)``, packed or
+    unpacked rows.  Each row runs relaxation rounds until its working set
+    stops changing or overflows; rows go in chunks of about
+    ``_PLAIN_CHUNK`` working-set elements.  Returns (rows, dist or None,
+    overflow uint8 [S]) as :func:`wide_sssp` does."""
+    _check_stage_args(adj, nw, sources, max_weight, capacity, pack_out)
     S, C = sources.shape[0], capacity
     sentinel = adj.shape[0] - 1
-    nodes = torch.full((S, C), sentinel, dtype=torch.int32, device=adj.device)
-    dist = torch.full((S, C), DIST_CAP, dtype=torch.int32, device=adj.device)
-    nodes[:, 0] = sources
+    dev = adj.device
+    src = sources.long()
+    real = (src >= 0) & (src <= sentinel)  # the kernels flag other ids
+    nodes = torch.full((S, C), sentinel, dtype=torch.int64, device=dev)
+    dist = torch.full((S, C), int(INF), dtype=torch.int64, device=dev)
+    nodes[:, 0] = torch.where(real, src, sentinel)
     dist[:, 0] = 0
-    over = torch.zeros((S,), dtype=torch.bool, device=adj.device)
-    active = torch.arange(S, device=adj.device)
-    for _ in range(max_weight + 2):
-        if active.numel() == 0:
-            break
-        nn, nd, ov = _relax_round(adj, nodes[active], dist[active], max_weight)
-        ov = ov | over[active]
-        changed = (nn != nodes[active]).any(1) | (nd != dist[active]).any(1)
-        nodes[active], dist[active], over[active] = nn, nd, ov
-        active = active[changed & ~ov]
-    over[active] = True  # round cap
-    return (nodes << DIST_BITS) | dist, over.to(torch.uint8)
+    over = ~real
+    rows = max(1, _PLAIN_CHUNK // (C * (adj.shape[1] + 1)))
+    for lo in range(0, S, rows):
+        part = slice(lo, lo + rows)  # views: _fixpoint writes through
+        _fixpoint(adj, nw, nodes[part], dist[part], over[part], max_weight)
+    if pack_out:
+        capped = torch.where(dist <= max_weight, dist, DIST_CAP)
+        return ((nodes << DIST_BITS) | capped).int(), None, over.to(torch.uint8)
+    return nodes.int(), dist.int(), over.to(torch.uint8)
+
+
+def _check_compact_args(rows, over, budget: int) -> None:
+    if rows.dtype != torch.int32 or rows.dim() != 2 or not rows.is_contiguous():
+        raise ValueError("rows must be contiguous int32 [S, C] packed rows")
+    if over.dtype != torch.uint8 or over.shape != rows.shape[:1]:
+        raise ValueError("over must be uint8 [S]")
+    if over.device != rows.device:
+        raise ValueError("rows and over must be on one device")
+    if budget < 0:
+        raise ValueError("budget must be >= 0")
+
+
+def compact_rows(
+    rows: torch.Tensor,
+    over: torch.Tensor,
+    sentinel: int,
+    max_weight: int,
+    budget: int,
+):
+    """Valid-slot compaction of packed stage rows (``csrc/sssp_compact.cu``).
+
+    A slot is valid when its node is not the sentinel, 1 <= dist <=
+    max_weight and its row did not overflow.  Returns (values int32
+    [budget]: the valid slots in row-major order, filled up to
+    min(total, budget); per-row counts, int8 when C <= 127 else int32;
+    total, an int64 [1] tensor).  A CUDA tensor launches the kernel on the
+    current stream without synchronizing; a CPU tensor runs
+    :func:`compact_rows_plain`."""
+    _check_compact_args(rows, over, budget)
+    if rows.device.type == "cpu":
+        return compact_rows_plain(rows, over, sentinel, max_weight, budget)
+    if rows.device.type != "cuda":
+        raise ValueError(f"unsupported device {rows.device}")
+    lib = build_kernels()["sssp_compact"]
+    S, C = rows.shape
+    dev = rows.device
+    int8 = C <= 127
+    vals = torch.empty((budget,), dtype=torch.int32, device=dev)
+    counts = torch.empty((S,), dtype=torch.int8 if int8 else torch.int32, device=dev)
+    total = torch.zeros((1,), dtype=torch.int64, device=dev)
+    if S == 0:
+        return vals, counts, total
+    row_off = torch.empty((S,), dtype=torch.int32, device=dev)
+    block_sum = torch.empty(((S + 255) // 256,), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.sssp_compact_launch(
+            rows.data_ptr(), over.data_ptr(), S, C, int(sentinel),
+            int(max_weight), int(budget), vals.data_ptr(), counts.data_ptr(),
+            int(int8), row_off.data_ptr(), block_sum.data_ptr(),
+            total.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"sssp_compact_launch failed: cudaError {err}")
+    KERNEL_LAUNCHES["sssp_compact"] += 1
+    return vals, counts, total
+
+
+def compact_rows_plain(rows, over, sentinel: int, max_weight: int, budget: int):
+    """Plain torch version of :func:`compact_rows`: the same filter, with a
+    cumulative sum for the positions."""
+    _check_compact_args(rows, over, budget)
+    S, C = rows.shape
+    node, dist = rows >> DIST_BITS, rows & DIST_CAP
+    valid = (node != sentinel) & (dist >= 1) & (dist <= max_weight)
+    valid &= (over == 0)[:, None]
+    flat = valid.reshape(-1)
+    pos = torch.cumsum(flat.long(), 0) - 1
+    keep = flat & (pos < budget)
+    vals = torch.zeros((budget,), dtype=torch.int32, device=rows.device)
+    vals[pos[keep]] = rows.reshape(-1)[keep]
+    counts = valid.sum(1, dtype=torch.int32)
+    total = counts.sum(dtype=torch.int64).reshape(1)
+    return vals, counts.to(torch.int8 if C <= 127 else torch.int32), total
 
 
 class DispatchedStage:
-    """Handle for a launched pool stage (:func:`batched_bounded_sssp_dispatch`):
-    the kernel runs on the device while the host works; ``fetch()``
-    synchronizes and copies the rows back."""
+    """Handle for a launched search stage (:func:`batched_bounded_sssp_dispatch`):
+    the kernel runs on the device while the host works; ``fetch()`` and
+    ``fetch_candidates()`` synchronize and copy the results back."""
 
-    def __init__(self, packed: torch.Tensor, over: torch.Tensor,
-                 events: tuple | None = None):
-        self._packed = packed
+    def __init__(self, rows: torch.Tensor, dist: torch.Tensor | None,
+                 over: torch.Tensor, events: tuple | None = None,
+                 compacted: tuple | None = None, budget: int = 0):
+        self._rows = rows
+        self._dist = dist
         self._over = over
         self._events = events
+        self._compacted = compacted
+        self._budget = budget
+        self.bytes_fetched = 0  # device -> host bytes of the last fetch
 
     def fetch(self):
-        """(packed rows [S, C] int32, overflow [S] bool), blocking."""
-        key = self._packed.cpu().numpy()
+        """(rows [S, C] int32, dist [S, C] int32 or None for packed rows,
+        overflow [S] bool), blocking."""
+        rows = self._rows.cpu().numpy()
+        dist = None if self._dist is None else self._dist.cpu().numpy()
         over = self._over.cpu().numpy().astype(bool)
-        return key, over
+        return rows, dist, over
 
     def fetch_candidates(self, dg, sources, in_mask):
-        """(Candidates, overflow [S] bool), blocking: the non-overflowed
-        rows through the native extraction (row-major triple order)."""
-        key, over = self.fetch()
-        return (
-            extract_packed_candidates(dg, key, sources, ~over, in_mask),
-            over,
-        )
+        """(Candidates, overflow [S] bool), blocking, in row-major triple
+        order.  A compacted stage whose valid count fits its budget
+        downloads only the valid slots and their row counts; otherwise
+        packed rows go through the native extraction and unpacked rows
+        through the numpy one."""
+        over = self._over.cpu().numpy().astype(bool)
+        self.bytes_fetched = over.nbytes
+        if self._compacted is not None:
+            vals, counts, total = self._compacted
+            n = int(total.item())
+            self.bytes_fetched += total.element_size()
+            if n <= self._budget:
+                vals = vals[:n].cpu().numpy()
+                counts = counts.cpu().numpy()
+                self.bytes_fetched += vals.nbytes + counts.nbytes
+                return _compact_candidates(dg, vals, counts, sources, in_mask), over
+        rows, dist, _ = self.fetch()
+        self.bytes_fetched += rows.nbytes + (0 if dist is None else dist.nbytes)
+        if dist is None:
+            tri = extract_packed_candidates(dg, rows, sources, ~over, in_mask)
+        else:
+            tri = extract_unpacked_candidates(dg, rows, dist, sources, ~over, in_mask)
+        return tri, over
 
     def kernel_seconds(self) -> float | None:
         """Device time of the launch (CUDA events), after a fetch; None on
@@ -259,14 +512,19 @@ class DispatchedStage:
         return start.elapsed_time(end) / 1e3
 
 
-def _check_sources(dg: DeviceGraph, sources: np.ndarray, max_weight: int):
-    if not _can_pack_out(dg, max_weight) or not _can_pack_adj(dg, max_weight):
-        raise ValueError(
-            "graph or bound outside the packed layouts (nodes < 2^24, "
-            "max_weight < 126); the unpacked stage is not ported yet"
-        )
-    if dg.deg_pad != 4:
-        raise ValueError(f"the kernel takes deg_pad 4, got {dg.deg_pad}")
+def _compact_candidates(dg, vals, counts, sources, in_mask) -> Candidates:
+    """Candidates from a compact download: ``vals`` holds the valid packed
+    slots row by row, ``counts`` the number per row."""
+    rows = np.repeat(np.arange(len(counts), dtype=np.int64), counts)
+    node = (vals >> DIST_BITS).astype(np.int32)
+    dist = (vals & DIST_CAP).astype(np.int64)
+    keep = np.asarray(in_mask, dtype=bool)[node]
+    u = dg.unmap_nodes(np.asarray(sources, dtype=np.int32)[rows[keep]])
+    v = dg.unmap_nodes(node[keep])
+    return Candidates(u.astype(np.int64), v.astype(np.int64), dist[keep])
+
+
+def _check_sources(dg: DeviceGraph, sources: np.ndarray) -> None:
     if len(sources) and (sources.min() < 0 or sources.max() > dg.n_nodes):
         raise ValueError("source id outside [0, n_nodes]")
 
@@ -277,24 +535,52 @@ def batched_bounded_sssp_dispatch(
     max_weight: int,
     capacity: int,
     device: torch.device | str,
+    schedule: str = "pool",
+    compact: bool = False,
+    budget: int | None = None,
 ) -> DispatchedStage:
-    """Launch one pool stage on ``device`` without waiting: uploads the
-    sources (the adjacency is uploaded once per graph), launches, and
-    returns the handle."""
+    """Launch one search stage on ``device`` without waiting: uploads the
+    sources (the adjacency is uploaded once per graph and layout),
+    launches, and returns the handle.
+
+    Packed rows and the packed adjacency are used wherever the graph and
+    bound allow (:func:`_can_pack_out`, :func:`_can_pack_adj`), the
+    unpacked ones otherwise.  With ``compact`` (packed rows only) the
+    valid slots are also compacted on the device, into a ``budget``-sized
+    buffer (default: a quarter of the slots, at least 1024);
+    ``fetch_candidates`` then downloads only those when they fit."""
     sources = np.ascontiguousarray(sources, dtype=np.int32)
-    _check_sources(dg, sources, max_weight)
+    _check_sources(dg, sources)
+    pack_out = _can_pack_out(dg, max_weight)
+    if compact and not pack_out:
+        raise ValueError("compaction needs packed rows (max_weight < 126)")
     device = torch.device(device)
-    adj = dg.device_buffers(device)
+    if _can_pack_adj(dg, max_weight):
+        adj, nw = dg.device_buffers(device), None
+    else:
+        adj, nw = dg.device_buffers(device, adj_packed=False)
     src = torch.from_numpy(sources).to(device)
     events = None
     if device.type == "cuda":
         stream = torch.cuda.current_stream(device)
         events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
         events[0].record(stream)
-    packed, over = pool_sssp(adj, src, max_weight, capacity)
+    if schedule == "pool" and pack_out and nw is None:
+        rows, over = pool_sssp(adj, src, max_weight, capacity)
+        dist = None
+    else:
+        rows, dist, over = wide_sssp(
+            adj, src, max_weight, capacity, nw=nw, pack_out=pack_out,
+            schedule=schedule,
+        )
+    compacted = None
+    if compact:
+        slots = len(sources) * capacity
+        budget = min(max(1024, slots // 4) if budget is None else budget, slots)
+        compacted = compact_rows(rows, over, dg.sentinel, max_weight, budget)
     if events is not None:
         events[1].record(stream)
-    return DispatchedStage(packed, over, events)
+    return DispatchedStage(rows, dist, over, events, compacted, budget or 0)
 
 
 def batched_bounded_sssp(
@@ -312,23 +598,44 @@ def batched_bounded_sssp(
     Returns (nodes [S, C], dist [S, C], overflow [S]): per source the set
     of reachable nodes with distance <= max_weight (sentinel-padded, dist
     INF), and whether the ball exceeded the capacity.  With
-    ``return_packed`` the first item is the packed row matrix and the
-    second is None.  Only the pool schedule is ported."""
-    if schedule != "pool":
-        raise NotImplementedError(
-            f"schedule {schedule!r}: the batch schedule (K3) is a ROADMAP "
-            "item of the port"
-        )
+    ``return_packed`` and a packed-row stage the first item is the packed
+    row matrix and the second is None.  ``schedule`` is "pool" or
+    "batch"; both give the same rows."""
     sources = np.asarray(sources, dtype=np.int32)
-    key, over = batched_bounded_sssp_dispatch(
-        dg, sources, max_weight, capacity, device
+    rows, dist, over = batched_bounded_sssp_dispatch(
+        dg, sources, max_weight, capacity, device, schedule=schedule
     ).fetch()
+    if dist is not None:
+        return rows, dist, over
     if return_packed:
-        return key, None, over
-    dist = key & DIST_CAP
-    nodes = key >> DIST_BITS
+        return rows, None, over
+    dist = rows & DIST_CAP
+    nodes = rows >> DIST_BITS
     np.putmask(dist, dist == DIST_CAP, INF)
     return nodes, dist, over
+
+
+def extract_unpacked_candidates(
+    dg: DeviceGraph,
+    nodes: np.ndarray,  # int32 [S, C] device-numbered, sentinel-padded
+    dist: np.ndarray,  # int32 [S, C], INF on empty slots
+    sources: np.ndarray,  # int32 [S] device-numbered
+    done: np.ndarray,  # bool [S]: rows to extract (non-overflowed)
+    in_mask: np.ndarray,  # bool/int8 [n_nodes] device-numbered
+) -> Candidates:
+    """(src, dst, dist) columns from unpacked rows in row-major order:
+    the numpy filter (1 <= dist < INF, in_mask) and id translation."""
+    dn, dd = nodes[done], dist[done]
+    srcs = np.asarray(sources)[done]
+    valid = (dn != dg.sentinel) & (dd >= 1) & (dd < INF)
+    mask = np.asarray(in_mask, dtype=bool)
+    valid &= mask[np.minimum(dn, len(mask) - 1)]
+    s_idx, c_idx = np.nonzero(valid)
+    return Candidates(
+        dg.unmap_nodes(srcs[s_idx]).astype(np.int64),
+        dg.unmap_nodes(dn[s_idx, c_idx]).astype(np.int64),
+        dd[s_idx, c_idx].astype(np.int64),
+    )
 
 
 def extract_packed_candidates(

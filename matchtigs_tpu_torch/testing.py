@@ -1,4 +1,4 @@
-# Copied from matchtigs_tpu/testing.py.
+# Copied from matchtigs_tpu/testing.py; adds assert_tigs_spell_kmer_strings for k > 63.
 """Synthetic data generation and oracle checks.
 
 The reference repo ships no fixtures; its real test oracle is k-mer-set
@@ -515,3 +515,26 @@ def make_unitig_store_strings(
         store.add_ascii(u.encode())
     store.finalize()
     return store, kmers, k
+
+
+def assert_tigs_spell_kmer_strings(
+    g: Bigraph,
+    tigs: list[np.ndarray],
+    store: SequenceStore,
+    k: int,
+    kmers: set[str],
+) -> None:
+    """Any-k form of :func:`assert_tigs_spell_kmer_set` over the canonical
+    k-mer string set of :func:`make_unitig_store_strings`."""
+    from .io.writers import spell_walk
+
+    def canon(s: str) -> str:
+        return min(s, s[::-1].translate(str.maketrans("ACGT", "TGCA")))
+
+    got: set[str] = set()
+    for t in tigs:
+        seq = dna.decode_to_ascii(spell_walk(g, t, store, k)).decode()
+        got.update(canon(seq[j : j + k]) for j in range(len(seq) - k + 1))
+    assert got == kmers, (
+        f"spelled kmer set mismatch: got {len(got)} expected {len(kmers)}"
+    )

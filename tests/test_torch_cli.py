@@ -45,6 +45,42 @@ def test_cli_output_byte_identical_to_jax(unitig_fa, tmp_path, flag, name):
 
 
 @pytest.mark.parametrize(
+    "options",
+    [["--sssp-overflow-mode", "ladder"], ["--sssp-initial-capacity", "128"]],
+    ids=["ladder", "C128"],
+)
+def test_cli_sssp_options_byte_identical_to_jax(
+    unitig_fa, tmp_path, monkeypatch, options
+):
+    """Both CLIs on their device engines (the JAX stage on the XLA CPU
+    backend, the port's plain version)."""
+    from matchtigs_tpu.algos import greedytigs as j_greedytigs
+    from matchtigs_tpu_torch.algos import greedytigs as t_greedytigs
+
+    for mod in (j_greedytigs, t_greedytigs):
+        monkeypatch.setattr(mod, "_use_host_engine", lambda config: False)
+    path, k = unitig_fa
+    outs = []
+    for side, main in (("jax", j_main), ("torch", t_main)):
+        out = tmp_path / f"{side}.fa"
+        rc = main(
+            ["--fa-in", str(path), "-k", str(k), "--greedytigs-fa-out", str(out),
+             "--use-mesh", "false", "--log-level", "Warning", *options]
+        )
+        assert rc == 0
+        outs.append(out.read_bytes())
+    assert outs[0] == outs[1] and len(outs[0]) > 0
+
+
+def test_cli_refuses_capacity_below_one(unitig_fa, tmp_path, capsys):
+    path, k = unitig_fa
+    with pytest.raises(SystemExit):
+        t_main(["--fa-in", str(path), "-k", str(k), "--sssp-initial-capacity",
+                "0", "--greedytigs-fa-out", str(tmp_path / "x")])
+    assert "must be >= 1" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize(
     "flag", ["--eulertigs-fa-out", "--pathtigs-gfa-out", "--matchtigs-fa-out"]
 )
 def test_cli_refuses_unported_algorithms(unitig_fa, tmp_path, flag, capsys):

@@ -1,4 +1,4 @@
-"""The CUDA kernel of the port on the card: against its plain torch
+"""The CUDA kernels of the port on the card: each against its plain torch
 version, and on the greedy main path.
 
 These tests import only the port, so they also run where JAX is absent
@@ -6,7 +6,7 @@ These tests import only the port, so they also run where JAX is absent
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Without a CUDA device they skip.
+Without a CUDA device they skip.  All comparisons are integer and exact.
 """
 
 import numpy as np
@@ -20,10 +20,14 @@ from matchtigs_tpu_torch.algos.greedytigs import (
     compute_greedytigs,
 )
 from matchtigs_tpu_torch.graph.build import build_bigraph_from_unitigs
+from matchtigs_tpu_torch.interop import device_graph_from_numpy
 from matchtigs_tpu_torch.ops import sssp
 from matchtigs_tpu_torch.ops.device_graph import build_device_graph
 
 pytestmark = pytest.mark.cuda
+
+CASES = [dict(genome_length=40000, k=13, seed=7), dict(genome_length=3000, k=9, seed=0)]
+CASE_IDS = ["40k-k13", "3k-k9"]
 
 
 @pytest.fixture
@@ -38,38 +42,112 @@ def _device_graph(case):
     return build_device_graph(build_bigraph_from_unitigs(store, k)), k
 
 
+def _assert_rows_equal(got, want):
+    """(rows, dist, over) of a kernel against its plain version: equal
+    flags, equal rows wherever the ball fit."""
+    rows, dist, over = (None if t is None else t.cpu() for t in got)
+    prows, pdist, pover = want
+    assert torch.equal(over, pover)
+    done = over == 0
+    assert torch.equal(rows[done], prows[done])
+    if pdist is not None:
+        assert torch.equal(dist[done], pdist[done])
+
+
 # (graph, capacity): the 40k graph has no overflow at C=4, the 3k k=9 graph
 # overflows some rows at C=4 and none at C=16.
 @pytest.mark.parametrize("capacity", [4, 16])
-@pytest.mark.parametrize(
-    "case",
-    [dict(genome_length=40000, k=13, seed=7), dict(genome_length=3000, k=9, seed=0)],
-    ids=["40k-k13", "3k-k9"],
-)
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
 def test_kernel_matches_plain(cuda_device, case, capacity):
     dg, k = _device_graph(case)
     src = torch.arange(dg.n_nodes + 1, dtype=torch.int32)  # sentinel included
-    before = sssp.KERNEL_LAUNCHES
+    before = dict(sssp.KERNEL_LAUNCHES)
     key, over = sssp.pool_sssp(
         dg.device_buffers(cuda_device), src.to(cuda_device), k - 1, capacity
     )
     torch.cuda.synchronize()
-    assert sssp.KERNEL_LAUNCHES == before + 1
-    pkey, pover = sssp.pool_sssp_plain(dg.device_buffers("cpu"), src, k - 1, capacity)
-    key, over = key.cpu(), over.cpu()
-    assert torch.equal(over, pover)
-    done = over == 0
-    assert torch.equal(key[done], pkey[done])
+    assert sssp.KERNEL_LAUNCHES["sssp_pool"] == before["sssp_pool"] + 1
+    assert sssp.KERNEL_LAUNCHES["sssp_wide"] == before["sssp_wide"]
+    want = sssp.pool_sssp_plain(dg.device_buffers("cpu"), src, k - 1, capacity)
+    _assert_rows_equal((key, None, over), want)
 
 
-def test_kernel_rejects_what_it_cannot_take(cuda_device):
-    dg, k = _device_graph(dict(genome_length=3000, k=9, seed=0))
-    adj = dg.device_buffers(cuda_device)
-    src = torch.arange(4, dtype=torch.int32)
-    with pytest.raises(ValueError, match="capacity"):
-        sssp.pool_sssp(adj, src.to(cuda_device), k - 1, 5)
-    with pytest.raises(ValueError, match="one device"):
-        sssp.pool_sssp(adj, src, k - 1, 4)
+# (layout, max_weight offset): packed at k-1; the unpacked pair and rows at
+# max_weight 30 and 130 (the k=131 bound).
+LAYOUTS = {"packed": None, "unpacked-30": 30, "unpacked-130": 130}
+
+
+@pytest.mark.parametrize("schedule", ["pool", "batch"])
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("capacity", [1, 5, 128, 1024, 20000])
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_wide_matches_plain(cuda_device, case, capacity, layout, schedule):
+    """C=20000 puts the working set in the global slab, the rest in
+    shared memory."""
+    dg, k = _device_graph(case)
+    src = torch.arange(dg.n_nodes + 1, dtype=torch.int32)
+    mw = LAYOUTS[layout]
+    if mw is None:
+        mw, adj, nw = k - 1, dg.device_buffers(cuda_device), None
+    else:
+        adj, nw = dg.device_buffers(cuda_device, adj_packed=False)
+    if capacity == 20000:
+        src = src[:64]  # the slab path; a few rows suffice
+    src = src.to(cuda_device)
+    before = sssp.KERNEL_LAUNCHES["sssp_wide"]
+    got = sssp.wide_sssp(
+        adj, src, mw, capacity, nw=nw, pack_out=nw is None, schedule=schedule,
+    )
+    torch.cuda.synchronize()
+    assert sssp.KERNEL_LAUNCHES["sssp_wide"] == before + 1
+    # the plain version on the card too: the same inputs, faster
+    want = sssp.pool_sssp_plain(adj, src, mw, capacity, nw=nw, pack_out=nw is None)
+    _assert_rows_equal(got, tuple(None if t is None else t.cpu() for t in want))
+
+
+def test_wide_takes_deg_pad_5(cuda_device):
+    """A node of out-degree 5, built by hand: the packed and the unpacked
+    adjacency with five slots per row."""
+    n, deg = 8, 5
+    nbr = np.full((n + 1, deg), n, np.int32)
+    nw = np.full((n + 1, deg), 1 << 20, np.int32)
+    nbr[0] = [1, 2, 3, 4, 5]
+    nw[0] = [1, 2, 3, 1, 2]
+    nbr[1, :2], nw[1, :2] = [6, 7], [1, 3]
+    nbr[6, 0], nw[6, 0] = 0, 2
+    dg = device_graph_from_numpy(n, nbr, nw, deg)
+    src = torch.arange(n + 1, dtype=torch.int32)
+    for capacity in (4, 8):
+        got = sssp.pool_sssp(dg.device_buffers(cuda_device), src.to(cuda_device), 4, capacity)
+        want = sssp.pool_sssp_plain(dg.device_buffers("cpu"), src, 4, capacity)
+        _assert_rows_equal((got[0], None, got[1]), want)
+        nbr_d, nw_d = dg.device_buffers(cuda_device, adj_packed=False)
+        got = sssp.wide_sssp(
+            nbr_d, src.to(cuda_device), 4, capacity, nw=nw_d, pack_out=False
+        )
+        cpu_nbr, cpu_nw = dg.device_buffers("cpu", adj_packed=False)
+        want = sssp.pool_sssp_plain(cpu_nbr, src, 4, capacity, nw=cpu_nw, pack_out=False)
+        _assert_rows_equal(got, want)
+
+
+@pytest.mark.parametrize("budget", [None, 7])
+@pytest.mark.parametrize("capacity", [4, 256])
+def test_compact_matches_plain(cuda_device, capacity, budget):
+    dg, k = _device_graph(CASES[1])
+    src = torch.arange(dg.n_nodes + 1, dtype=torch.int32)
+    key, over = sssp.pool_sssp(dg.device_buffers(cuda_device), src.to(cuda_device), k - 1, capacity)
+    budget = key.numel() // 4 if budget is None else budget
+    before = sssp.KERNEL_LAUNCHES["sssp_compact"]
+    vals, counts, total = sssp.compact_rows(key, over, dg.sentinel, k - 1, budget)
+    torch.cuda.synchronize()
+    assert sssp.KERNEL_LAUNCHES["sssp_compact"] == before + 1
+    pvals, pcounts, ptotal = sssp.compact_rows_plain(
+        key.cpu(), over.cpu(), dg.sentinel, k - 1, budget
+    )
+    assert int(total) == int(ptotal) > 0
+    assert counts.dtype == pcounts.dtype and torch.equal(counts.cpu(), pcounts)
+    n = min(int(ptotal), budget)
+    assert torch.equal(vals[:n].cpu(), pvals[:n])
 
 
 def test_device_engine_runs_the_kernel(cuda_device):
@@ -79,12 +157,52 @@ def test_device_engine_runs_the_kernel(cuda_device):
     )
     g = build_bigraph_from_unitigs(store, k)
     want = compute_greedytigs(g.copy(), GreedytigConfig(k=k, engine="host"))
-    before = sssp.KERNEL_LAUNCHES
-    stats = SearchStats()
+    for option in ({}, dict(overflow_mode="ladder"), dict(device_schedule="batch")):
+        sssp.reset_kernel_launches()
+        stats = SearchStats()
+        gg = g.copy()
+        got = compute_greedytigs(gg, GreedytigConfig(k=k, **option), stats)
+        launches = dict(sssp.KERNEL_LAUNCHES)
+        if not option:  # the default path: one launch of the register kernel
+            assert launches == {"sssp_pool": 1, "sssp_wide": 0, "sssp_compact": 0}
+        assert sum(launches.values()) == len(stats.stage_kernel_times) >= 1
+        assert all(t > 0 for t in stats.stage_kernel_times)
+        assert np.array_equal(got.flat, want.flat), option
+        assert np.array_equal(got.offsets, want.offsets), option
+        testing.assert_tigs_spell_kmer_set(gg, got, store, k, kmers, allow_duplicates=True)
+
+
+def test_k131_runs_the_wide_kernel(cuda_device):
+    store, kmers, k = testing.make_unitig_store_strings(
+        genome_length=4000, k=131, seed=131, n_sequences=3
+    )
+    g = build_bigraph_from_unitigs(store, k)
+    want = compute_greedytigs(g.copy(), GreedytigConfig(k=k, engine="host"))
+    sssp.reset_kernel_launches()
     gg = g.copy()
-    got = compute_greedytigs(gg, GreedytigConfig(k=k), stats)
-    assert sssp.KERNEL_LAUNCHES == before + 1
-    assert stats.stage_kernel_times and stats.stage_kernel_times[0] > 0
+    got = compute_greedytigs(gg, GreedytigConfig(k=k, engine="device"))
+    assert sssp.KERNEL_LAUNCHES["sssp_wide"] >= 1
     assert np.array_equal(got.flat, want.flat)
     assert np.array_equal(got.offsets, want.offsets)
-    testing.assert_tigs_spell_kmer_set(gg, got, store, k, kmers, allow_duplicates=True)
+    testing.assert_tigs_spell_kmer_strings(gg, got, store, k, kmers)
+
+
+def test_kernel_rejects_what_it_cannot_take(cuda_device):
+    """A capacity outside the register kernel's set goes to the wide
+    kernel; operands on two devices and a packed adjacency bounded at 127
+    are refused."""
+    dg, k = _device_graph(CASES[1])
+    adj = dg.device_buffers(cuda_device)
+    src = torch.arange(4, dtype=torch.int32)
+    before = dict(sssp.KERNEL_LAUNCHES)
+    key, over = sssp.pool_sssp(adj, src.to(cuda_device), k - 1, 5)
+    torch.cuda.synchronize()
+    assert sssp.KERNEL_LAUNCHES["sssp_wide"] == before["sssp_wide"] + 1
+    assert sssp.KERNEL_LAUNCHES["sssp_pool"] == before["sssp_pool"]
+    assert key.shape == (4, 5) and over.shape == (4,)
+    with pytest.raises(ValueError, match="one device"):
+        sssp.pool_sssp(adj, src, k - 1, 4)
+    with pytest.raises(ValueError, match="one device"):
+        sssp.wide_sssp(adj, src, k - 1, 5)
+    with pytest.raises(ValueError, match="max_weight"):
+        sssp.wide_sssp(adj, src.to(cuda_device), 127, 5)  # packed adjacency

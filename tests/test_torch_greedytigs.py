@@ -102,7 +102,101 @@ def test_one_launch_stage_identical_to_jax_chunked_stage():
     ids=["mesh", "ladder"],
 )
 def test_unported_options_raise(option):
+    """The mesh is not ported and raises; the ladder, once refused here,
+    now runs and gives the host-tail run's walks."""
     store, _, k = ttesting.make_unitig_store(genome_length=3000, k=9, seed=0)
     g = t_build(store, k)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_greedy(g, TConfig(k=k, engine="device", **option))
+    if "use_mesh" in option:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            t_greedy(g, TConfig(k=k, engine="device", **option))
+        return
+    want = t_greedy(g.copy(), TConfig(k=k, engine="device"))
+    got = t_greedy(g.copy(), TConfig(k=k, engine="device", **option))
+    assert np.array_equal(got.flat, want.flat)
+    assert np.array_equal(got.offsets, want.offsets)
+
+
+@pytest.mark.parametrize("name", ["ladder-k9", "golden-pangenome"])
+def test_ladder_identical_to_jax(name):
+    """overflow_mode="ladder": several device stages at 4x capacity each;
+    the walks equal the JAX ladder's and the port's host-tail run's."""
+    kind, case = (
+        ("unitig", dict(genome_length=4000, k=9, seed=11))
+        if name == "ladder-k9" else GRAPHS[name]
+    )
+    store, _, k = _store(jtesting, kind, case)
+    want = j_greedy(j_build(store, k), JConfig(
+        k=k, engine="device", use_mesh=False, overflow_mode="ladder",
+    ))
+    tstore, kmers, tk = _store(ttesting, kind, case)
+    tg = t_build(tstore, tk)
+    stats = SearchStats()
+    g = tg.copy()
+    got = t_greedy(g, TConfig(k=tk, engine="device", overflow_mode="ladder"), stats)
+    assert len(stats.stage_sources) >= 2
+    assert stats.stage_sources == sorted(stats.stage_sources, reverse=True)
+    assert stats.capacity_final == 4 ** len(stats.stage_sources)
+    assert len(stats.stage_times) == len(stats.stage_sources)
+    assert stats.retries == len(stats.stage_sources) - 1
+    assert np.array_equal(got.flat, want.flat)
+    assert np.array_equal(got.offsets, want.offsets)
+    host_tail = t_greedy(tg.copy(), TConfig(k=tk, engine="device"))
+    assert np.array_equal(got.flat, host_tail.flat)
+    ttesting.assert_tigs_spell_kmer_set(g, got, tstore, tk, kmers, allow_duplicates=True)
+
+
+def test_ladder_exhausts_max_capacity():
+    store, _, k = ttesting.make_unitig_store(genome_length=4000, k=9, seed=11)
+    with pytest.raises(RuntimeError, match="capacity 4 exhausted"):
+        t_greedy(t_build(store, k), TConfig(
+            k=k, engine="device", overflow_mode="ladder", max_capacity=4,
+        ))
+
+
+@pytest.mark.parametrize(
+    "option",
+    [dict(initial_capacity=5), dict(initial_capacity=128),
+     dict(initial_capacity=1024), dict(device_schedule="batch"),
+     dict(device_schedule="batch", initial_capacity=5, overflow_mode="ladder")],
+    ids=["C5", "C128", "C1024", "batch", "batch-C5-ladder"],
+)
+def test_capacity_and_schedule_identical_to_jax(option):
+    kind, case = GRAPHS["golden-pangenome"]
+    store, _, k = _store(jtesting, kind, case)
+    want = j_greedy(j_build(store, k), JConfig(
+        k=k, engine="device", use_mesh=False, **option,
+    ))
+    tstore, _, tk = _store(ttesting, kind, case)
+    stats = SearchStats()
+    got = t_greedy(t_build(tstore, tk), TConfig(k=tk, engine="device", **option), stats)
+    assert stats.stage_sources[0] > 0
+    assert np.array_equal(got.flat, want.flat)
+    assert np.array_equal(got.offsets, want.offsets)
+
+
+@pytest.mark.parametrize("k", [131, 255])
+def test_large_k_identical_to_jax(k):
+    """k >= 128: the unpacked adjacency and rows, and their numpy
+    extraction."""
+    case = dict(genome_length=4000, k=k, seed=k, n_sequences=3)
+    store, _, jk = jtesting.make_unitig_store_strings(**case)
+    want = j_greedy(j_build(store, jk), JConfig(k=jk, engine="device", use_mesh=False))
+    tstore, kmers, tk = ttesting.make_unitig_store_strings(**case)
+    tg = t_build(tstore, tk)
+    for engine in ("device", "host"):
+        g = tg.copy()
+        stats = SearchStats()
+        got = t_greedy(g, TConfig(k=tk, engine=engine), stats)
+        assert np.array_equal(got.flat, want.flat), engine
+        assert np.array_equal(got.offsets, want.offsets), engine
+        assert bool(stats.stage_times) == (engine == "device")
+        ttesting.assert_tigs_spell_kmer_strings(g, got, tstore, tk, kmers)
+
+
+def test_config_rejects_unknown_modes():
+    store, _, k = ttesting.make_unitig_store(genome_length=3000, k=9, seed=0)
+    g = t_build(store, k)
+    for option in (dict(overflow_mode="x"), dict(device_schedule="x"),
+                   dict(initial_capacity=0)):
+        with pytest.raises(ValueError):
+            t_greedy(g.copy(), TConfig(k=k, engine="device", **option))

@@ -1,6 +1,7 @@
 """The port's pool search stage (K1+K2) against the JAX package's pool
 scheduler: equal overflow flags, bit-equal rows wherever the ball fit,
-and equal extracted candidates.  Both sides read the same adjacency."""
+and equal extracted candidates.  Both sides read the same adjacency.
+The other stage modes are in test_torch_stage_modes.py."""
 
 import numpy as np
 import pytest
@@ -128,22 +129,37 @@ def test_sentinel_source_row_is_empty():
 
 
 def test_pool_sssp_rejects_what_the_kernel_cannot_take():
-    _, _, tdg, k = _graphs(dict(genome_length=3000, k=9, seed=0))
+    """Capacity 5, max_weight 127 and the batch schedule, once refused,
+    now run and match the JAX stage; wrong dtypes, a packed adjacency
+    bounded at 127 and a source id out of range are still refused."""
+    _, jdg, tdg, k = _graphs(dict(genome_length=3000, k=9, seed=0))
     adj = tdg.device_buffers("cpu")
     src = torch.arange(4, dtype=torch.int32)
-    with pytest.raises(ValueError, match="capacity"):
-        tsssp.pool_sssp(adj, src, k - 1, 5)
+    key, over = tsssp.pool_sssp(adj, src, k - 1, 5)
+    jkey, _, jover = jsssp.batched_bounded_sssp(
+        jdg, src.numpy(), max_weight=k - 1, capacity=5, batch_size=4,
+        schedule="pool", return_packed=True,
+    )
+    assert np.array_equal(over.numpy().astype(bool), jover)
+    assert np.array_equal(key.numpy()[~jover], jkey[~jover])
     with pytest.raises(ValueError):
         tsssp.pool_sssp(adj, src.long(), k - 1, 4)
     with pytest.raises(ValueError):
         tsssp.pool_sssp(adj.long(), src, k - 1, 4)
     with pytest.raises(ValueError, match="max_weight"):
-        tsssp.pool_sssp(adj, src, 127, 4)
+        tsssp.pool_sssp(adj, src, 127, 4)  # clamped packed weights
     with pytest.raises(ValueError, match="source id"):
         tsssp.batched_bounded_sssp(
             tdg, np.array([tdg.n_nodes + 1]), k - 1, 4, device="cpu"
         )
-    with pytest.raises(NotImplementedError, match="K3"):
-        tsssp.batched_bounded_sssp(
-            tdg, np.arange(4), k - 1, 4, schedule="batch", device="cpu"
+    for schedule, max_weight in (("pool", 127), ("batch", k - 1)):
+        tn, td, to = tsssp.batched_bounded_sssp(
+            tdg, np.arange(4), max_weight, 4, schedule=schedule, device="cpu"
         )
+        jn, jd, jo = jsssp.batched_bounded_sssp(
+            jdg, np.arange(4, dtype=np.int32), max_weight=max_weight,
+            capacity=4, batch_size=4, schedule=schedule,
+        )
+        jd = np.where(jd > max_weight, tsssp.INF, jd)
+        assert np.array_equal(to, jo)
+        assert np.array_equal(tn[~to], jn[~to]) and np.array_equal(td[~to], jd[~to])
