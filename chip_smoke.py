@@ -17,17 +17,30 @@ in the checkout and holding each against its plain PyTorch version:
 - ``cli_ladder``: the CLI with ``--sssp-overflow-mode ladder`` (the wide
   kernel serves the stages at C >= 256);
 - ``cli_k131``: the CLI at k=131 on a string-generated input (unpacked
-  adjacency and rows).
+  adjacency and rows);
+- ``mesh_sort_vs_plain``: the mesh's sort and merge-split kernel
+  (``csrc/mesh_sort.cu``) on the flagship's acceptance keys and edge cases;
+- ``mesh_stage``: the sharded search stage on a 4-shard mesh of the one
+  card, both schedules, against the single-device stage;
+- ``mesh_accept``: the sharded acceptance sort on that mesh, and the accept
+  scan over it against the host accept;
+- ``mesh_two_process``: two processes of one gloo group, both on the card,
+  run greedy matchtigs with ``use_mesh=True`` (this script with
+  ``--mesh-worker``); walks equal in both and to the host engine's.
 
-Each kernel's ``launches`` in the kernels line is read from a path run
-with the counts set to 0 just before it: ``sssp_pool`` from
-``cli_device``, ``sssp_wide`` from ``cli_ladder`` and ``cli_k131``,
-``sssp_compact`` from the compact dispatch of ``compact_vs_full``.
+Each kernel's ``launches`` in the kernels line is read from path runs
+with the counts set to 0 just before each: ``sssp_pool`` from
+``cli_device``, ``mesh_stage`` and ``mesh_two_process``, ``sssp_wide`` from
+``cli_ladder`` and ``cli_k131``, ``sssp_compact`` from the compact dispatch
+of ``compact_vs_full``, ``mesh_sort`` and ``mesh_merge_split`` from
+``mesh_two_process``.  Each kernel's ``bound_ms`` is the larger of its
+bytes (inputs read once, outputs written once) over the card's memory
+rate and its operations over the card's peak, from this run's inputs.
 
     python3 chip_smoke.py [--genome-length N]
 
 Phases print one JSON line each, with their seconds; any failure exits
-non-zero.  The last three lines are the kernels, the GPU's name and power
+non-zero, and so does a worker that fails or a collective that times out.  The last three lines are the kernels, the GPU's name and power
 limit, and a JSON status object.  Needs a CUDA device; exits non-zero
 without one.
 """
@@ -38,6 +51,8 @@ import argparse
 import gzip
 import json
 import logging
+import math
+import socket
 import subprocess
 import sys
 import tempfile
@@ -60,6 +75,14 @@ WIDE_UNPACKED_BOUND = 30  # the k=31 bound on the unpacked layouts
 DEEP_BOUND, DEEP_CAPACITY = 130, 256  # the k=131 bound on the flagship
 MAX_BALL = 1 << 16  # GreedytigConfig.max_capacity
 DEVICE_TYPE = "cuda"
+MESH_SHARDS = 4  # in-process shards of the mesh phases, all on the one card
+SORT_EDGE_SIZES = (0, 1, 2049)  # 2049: one key past the kernel's first tile
+WORKER_TIMEOUT_S = 420  # both mesh workers, load and graph build included
+COLLECTIVE_TIMEOUT_S = 300
+# NVIDIA H100 SXM data sheet: HBM3 rate, and the peak rate outside the
+# tensor cores (float32; the kernels' integer work runs on the same cores)
+HBM_BYTES_PER_S = 3.35e12
+CORE_OPS_PER_S = 67e12
 
 
 def phase(name: str, **fields) -> None:
@@ -84,6 +107,46 @@ def kernel_ms(fn, reps: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def roofline(bytes_moved: int, ops: int) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time the card could take."""
+    t_bytes = 1e3 * bytes_moved / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / CORE_OPS_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def search_bound(adj, src, rows, over, deg: int) -> tuple[float, str]:
+    """Bound of a search launch: the adjacency, sources, rows and flags
+    once; one relaxation per member slot and adjacency slot of the balls
+    this run found (a ball that overflowed: C + 1 members)."""
+    from matchtigs_tpu_torch.ops.sssp import DIST_BITS
+
+    sentinel = adj.shape[0] - 1
+    members = int(((rows >> DIST_BITS) != sentinel)[over == 0].sum())
+    members += int((over != 0).sum()) * (rows.shape[1] + 1)
+    moved = sum(t.numel() * t.element_size() for t in (adj, src, rows, over))
+    return roofline(moved, members * deg)
+
+
+def sort_bound(n_in: int, n_out: int) -> tuple[float, str]:
+    """Bound of a key sort or merge: int64 keys read once and written once;
+    n log2 n comparisons."""
+    return roofline(8 * (n_in + n_out), n_in * max(1, math.ceil(math.log2(max(2, n_in)))))
+
+
+def key_mismatches(got: torch.Tensor, want: torch.Tensor) -> tuple[int, int]:
+    """(mismatching positions, largest absolute difference among them)."""
+    bad = got != want
+    idx = torch.nonzero(bad).flatten()[:1000]
+    diffs = [abs(a - b) for a, b in zip(got[idx].tolist(), want[idx].tolist())]
+    return int(bad.sum()), max(diffs, default=0)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
 
 
 def plain_ms(fn):
@@ -165,7 +228,11 @@ def spelled_kmer_set(store, k: int) -> np.ndarray:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--genome-length", type=int, default=10_000_000)
+    ap.add_argument("--mesh-worker", nargs=4, metavar=("RANK", "WORLD", "PORT", "OUT"),
+                    help="run one process of the mesh_two_process phase")
     args = ap.parse_args(argv)
+    if args.mesh_worker:
+        return mesh_worker(*args.mesh_worker, genome_length=args.genome_length)
     t_start = time.monotonic()
 
     # 1. Device
@@ -186,9 +253,13 @@ def main(argv=None) -> int:
     from matchtigs_tpu_torch.graph.build import build_bigraph_from_unitigs
     from matchtigs_tpu_torch.io.readers import read_fasta
     from matchtigs_tpu_torch.io.writers import spell_walks_flat
-    from matchtigs_tpu_torch.ops import sssp
+    from matchtigs_tpu_torch.algos.greedytigs import collect_candidates
+    from matchtigs_tpu_torch.ops import mesh_sort, sssp
     from matchtigs_tpu_torch.ops.device_graph import build_device_graph
-    from matchtigs_tpu_torch.ops.matching import unbalanced_nodes
+    from matchtigs_tpu_torch.ops.matching import (
+        greedy_accept, greedy_accept_sorted_keys, pack_accept_keys, unbalanced_nodes,
+    )
+    from matchtigs_tpu_torch.parallel import mesh as mesh_mod
 
     t0 = time.monotonic()
     sssp.build_kernels()
@@ -206,7 +277,7 @@ def main(argv=None) -> int:
         with_repeats=True,
     )
     g = build_bigraph_from_unitigs(store, k)
-    out_nodes, in_mask, _ = unbalanced_nodes(g)
+    out_nodes, in_mask, mult = unbalanced_nodes(g)
     dg = build_device_graph(g)
     pending, hard = split_device_sources(
         dg, out_nodes, GreedytigConfig.host_route_threshold
@@ -245,7 +316,8 @@ def main(argv=None) -> int:
     )
     r = row_mismatches((key, None, over), want)
     checks.append(r)
-    phase("kernel_main_shape", seconds=time.monotonic() - t0,
+    pool_bound = search_bound(adj, src, key, over, dg.deg_pad)
+    phase("kernel_main_shape", bound_ms=pool_bound[0], bound_by=pool_bound[1], seconds=time.monotonic() - t0,
           sources=len(pending), capacity=CAPACITY, kernel_ms=main_ms,
           plain_on_gpu_ms=pool_plain_ms,
           sources_per_s=len(pending) / (main_ms / 1e3),
@@ -284,6 +356,8 @@ def main(argv=None) -> int:
         del want, got
     wide_main = next(r for r in wide if r["layout"] == "packed"
                      and r["schedule"] == "pool" and r["capacity"] == 256)
+    wide_bound = search_bound(adj, over_sources, *sssp.wide_sssp(
+        adj, over_sources, k - 1, 256)[::2], dg.deg_pad)
     phase("wide_vs_plain_done", seconds=time.monotonic() - t0, cases=len(wide))
 
     # 5. Compaction: the kernel against its plain version on the C=4 rows of
@@ -298,6 +372,18 @@ def main(argv=None) -> int:
     )
     n_valid = min(int(ptotal), budget)
     compact_err = int((vals[:n_valid].long() - pvals[:n_valid].long()).abs().max())
+    # the library call: masked_select over the same rows with the mask given
+    node4, dist4 = rows4 >> sssp.DIST_BITS, rows4 & sssp.DIST_CAP
+    valid4 = ((node4 != dg.sentinel) & (dist4 >= 1) & (dist4 <= k - 1)
+              & (over4 == 0)[:, None])
+    compact_library_ms = kernel_ms(lambda: torch.masked_select(rows4, valid4))
+    check(torch.equal(torch.masked_select(rows4, valid4), pvals[:n_valid]),
+          "masked_select disagrees with the compaction")
+    compact_bound = roofline(
+        sum(t.numel() * t.element_size() for t in (rows4, over4, counts, total))
+        + 4 * n_valid, 0,
+    )
+    del node4, dist4, valid4
     check(int(total) == int(ptotal) and torch.equal(counts, pcounts)
           and compact_err == 0, "compaction kernel disagrees with its plain version")
     sssp.reset_kernel_launches()
@@ -319,6 +405,7 @@ def main(argv=None) -> int:
     phase("compact_vs_full", seconds=time.monotonic() - t0, sources=len(pending),
           capacity=CAPACITY, valid_slots=int(total), budget=budget,
           kernel_ms=compact_ms, plain_on_gpu_ms=compact_plain_ms,
+          library_ms=compact_library_ms, bound_ms=compact_bound[0],
           max_abs_err=compact_err, candidates=len(ctri), columns_equal=same,
           bytes_full=full.bytes_fetched, bytes_compact=comp.bytes_fetched,
           full_stage_s=full_s, compact_stage_s=compact_s,
@@ -349,7 +436,8 @@ def main(argv=None) -> int:
         fa_in = Path(tmp) / "unitigs.fa.gz"
         write_fasta(fa_in, store)
         rc, launches, cli_s, out_store = run_cli(fa_in, k)
-        check(rc == 0 and launches == {"sssp_pool": 1, "sssp_wide": 0, "sssp_compact": 0},
+        check(rc == 0 and launches == {"sssp_pool": 1, "sssp_wide": 0, "sssp_compact": 0,
+                                       "mesh_sort": 0, "mesh_merge_split": 0},
               f"CLI rc {rc}, kernel launches {launches}")
         cli_tigs, cli_len = len(out_store), int(out_store.offsets[-1])
         got = spelled_kmer_set(out_store, k)
@@ -451,6 +539,140 @@ def main(argv=None) -> int:
           f"k=131 CLI: k-mer set equal {spelled == kset}, launches {launches}")
     wide_launches += launches["sssp_wide"]
 
+    # 9. The mesh's sort and merge-split kernel against their plain
+    # versions: the flagship's acceptance keys, then edge cases
+    t0 = time.monotonic()
+    chunks = collect_candidates(g, out_nodes, in_mask, k, GreedytigConfig(k=k),
+                                return_chunks=True)
+    keys = pack_accept_keys(chunks)
+    check(keys is not None, "flagship candidates exceed the packed accept keys")
+    rng = np.random.default_rng(SEED)
+    # the blocks of a two-shard sort (mesh_two_process): the keys padded
+    # with KEY_PAD to 2 * half, as sharded_accept_key_sort pads them
+    half = -(-len(keys) // 2)
+    padded = np.full(2 * half, mesh_mod.KEY_PAD, dtype=np.int64)
+    padded[: len(keys)] = keys
+    sort_cases = [("flagship", keys), ("two-shard-block", padded[half:])]
+    sort_cases += [(f"n={n}", rng.choice(keys, n)) for n in SORT_EDGE_SIZES]
+    sort_cases += [("all-duplicates", np.full(100_000, keys[len(keys) // 2])),
+                   ("all-padding", np.full(3 * mesh_sort.TILE + 5, mesh_mod.KEY_PAD))]
+    sort_err = sort_bad = 0
+    for name, case in sort_cases:
+        t = torch.from_numpy(np.ascontiguousarray(case, dtype=np.int64)).to(device)
+        bad, err = key_mismatches(mesh_sort.sort_keys(t), mesh_sort.sort_keys_plain(t))
+        phase("mesh_sort_case", case=name, keys=len(case), mismatches=bad, max_abs_err=err)
+        sort_bad, sort_err = sort_bad + bad, max(sort_err, err)
+    flag_keys = torch.from_numpy(keys).to(device)
+    sort_ms = kernel_ms(lambda: mesh_sort.sort_keys(flag_keys))
+    sort_library_ms = kernel_ms(lambda: torch.sort(flag_keys))
+    _, sort_plain_ms = plain_ms(lambda: mesh_sort.sort_keys_plain(flag_keys))
+    sort_roof = sort_bound(len(keys), len(keys))
+    # merge-split: the flagship keys in two sorted halves, the second padded
+    a, b = (mesh_sort.sort_keys(torch.from_numpy(x).to(device))
+            for x in (padded[:half], padded[half:]))
+    merge_bad = merge_err = 0
+    for keep_high in (False, True):
+        bad, err = key_mismatches(mesh_sort.merge_split(a, b, keep_high),
+                                  mesh_sort.merge_split_plain(a, b, keep_high))
+        merge_bad, merge_err = merge_bad + bad, max(merge_err, err)
+    for L in SORT_EDGE_SIZES[1:]:
+        ea, eb = (torch.sort(torch.from_numpy(rng.choice(keys, L)).to(device)).values
+                  for _ in range(2))
+        bad, err = key_mismatches(mesh_sort.merge_split(ea, eb, True),
+                                  mesh_sort.merge_split_plain(ea, eb, True))
+        merge_bad, merge_err = merge_bad + bad, max(merge_err, err)
+    merge_ms = kernel_ms(lambda: mesh_sort.merge_split(a, b, True))
+    ab = torch.cat([a, b])
+    merge_library_ms = kernel_ms(lambda: torch.sort(ab))
+    _, merge_plain_ms = plain_ms(lambda: mesh_sort.merge_split_plain(a, b, True))
+    # L keys in (the split's search finds where the kept half starts; only
+    # those keys are read), L out, L comparisons
+    merge_bound = roofline(8 * 2 * half, half)
+    del flag_keys, a, b, ab
+    phase("mesh_sort_vs_plain", seconds=time.monotonic() - t0, keys=len(keys),
+          sort_mismatches=sort_bad, merge_split_mismatches=merge_bad,
+          sort_ms=sort_ms, sort_plain_on_gpu_ms=sort_plain_ms,
+          sort_library_ms=sort_library_ms, sort_bound_ms=sort_roof[0],
+          merge_split_ms=merge_ms, merge_split_plain_on_gpu_ms=merge_plain_ms,
+          merge_split_library_ms=merge_library_ms, merge_split_bound_ms=merge_bound[0])
+    check(sort_bad == 0 and merge_bad == 0,
+          "the mesh sort kernel disagrees with its plain version")
+
+    # 10. The sharded search stage (K6) on 4 shards of the one card, both
+    # schedules: the shards run one after another on the card's stream
+    t0 = time.monotonic()
+    shards = mesh_mod.make_mesh([device] * MESH_SHARDS)
+    stage_launches = {}
+    S = len(pending)
+    L = -(-S // MESH_SHARDS)
+    for schedule in sssp.SCHEDULES:
+        sssp.reset_kernel_launches()
+        t = time.monotonic()
+        stage = mesh_mod.sharded_bounded_sssp_dispatch(
+            dg, pending, k - 1, CAPACITY, shards, schedule=schedule
+        )
+        rows, _, m_over, srcs = stage.fetch()
+        mesh_s = time.monotonic() - t
+        stage_launches[schedule] = dict(sssp.KERNEL_LAUNCHES)
+        t = time.monotonic()
+        one_rows, _, one_over = sssp.batched_bounded_sssp(
+            dg, pending, k - 1, CAPACITY, return_packed=True, schedule=schedule,
+            device=device,
+        )
+        one_s = time.monotonic() - t
+        real = srcs != dg.n_nodes
+        striped = all(np.array_equal(srcs[d * L:(d + 1) * L][real[d * L:(d + 1) * L]],
+                                     pending[d::MESH_SHARDS]) for d in range(MESH_SHARDS))
+        # rows back in the order of the sources: shard d's row j is source j * 4 + d
+        by_source = rows.reshape(MESH_SHARDS, L, -1).transpose(1, 0, 2).reshape(L * MESH_SHARDS, -1)[:S]
+        over_by_source = m_over.reshape(MESH_SHARDS, L).T.reshape(-1)[:S]
+        flag_bad = int((over_by_source != one_over).sum())
+        row_bad = int((by_source[~one_over] != one_rows[~one_over]).any(1).sum())
+        launched = stage_launches[schedule]["sssp_pool" if schedule == "pool" else "sssp_wide"]
+        phase("mesh_stage", schedule=schedule, shards=MESH_SHARDS, sources=S,
+              padding_rows=int((~real).sum()), striped=striped, flag_mismatch=flag_bad,
+              row_mismatch=row_bad, overflow=int(one_over.sum()), mesh_stage_s=mesh_s,
+              kernel_ms_summed=1e3 * stage.kernel_seconds(),
+              one_device_stage_s=one_s, launches=stage_launches[schedule])
+        check(striped and flag_bad == 0 and row_bad == 0 and launched == MESH_SHARDS,
+              f"the {schedule} mesh stage differs from the single-device stage")
+        del stage, rows, one_rows
+    phase("mesh_stage_done", seconds=time.monotonic() - t0)
+
+    # 11. The sharded acceptance sort (K7) on the same mesh, and the accept
+    # scan over it against the host accept
+    t0 = time.monotonic()
+    sssp.reset_kernel_launches()
+    sorted_keys = mesh_mod.sharded_accept_key_sort(keys, shards)
+    accept_launches = dict(sssp.KERNEL_LAUNCHES)
+    sort_equal = np.array_equal(sorted_keys, np.sort(keys))
+    m_mesh, m_host = mult.copy(), mult.copy()
+    acc_mesh = greedy_accept_sorted_keys(g, sorted_keys, m_mesh)
+    acc_host = greedy_accept(g, chunks, m_host)  # consumes the chunks
+    accept_equal = np.array_equal(acc_mesh, acc_host) and np.array_equal(m_mesh, m_host)
+    phase("mesh_accept", seconds=time.monotonic() - t0, keys=len(keys),
+          shards=MESH_SHARDS, sort_equal=sort_equal, accepted=len(acc_mesh),
+          accept_equal=accept_equal, launches=accept_launches)
+    check(sort_equal and accept_equal, "the mesh accept differs from the host accept")
+    del chunks, sorted_keys, acc_mesh, acc_host
+
+    # 12. Two processes of one gloo group, both on the card, on the
+    # flagship cached above
+    t0 = time.monotonic()
+    workers = run_mesh_workers(args.genome_length)
+    w_launches = [json.loads(str(w["launches"])) for w in workers]
+    same = all(np.array_equal(w[c], workers[0][c]) for w in workers
+               for c in ("flat", "offsets"))
+    same_host = (np.array_equal(workers[0]["flat"], workers[0]["host_flat"])
+                 and np.array_equal(workers[0]["offsets"], workers[0]["host_offsets"]))
+    phase("mesh_two_process", seconds=time.monotonic() - t0, processes=len(workers),
+          genome_length=args.genome_length, tigs=len(workers[0]["offsets"]),
+          walks_equal_across_ranks=same, walks_equal_host=same_host,
+          greedy_s=[float(w["seconds"]) for w in workers], launches=w_launches)
+    check(same and same_host, "two-process walks differ across ranks or from the host engine")
+    check(all(w["mesh_sort"] > 0 and w["mesh_merge_split"] > 0 and w["sssp_pool"] > 0
+              for w in w_launches), f"two-process launches {w_launches}")
+
     phase("total", seconds=time.monotonic() - t_start)
     print(json.dumps({"kernels": [
         {
@@ -458,20 +680,27 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": "matchtigs_tpu_torch/csrc/sssp_pool.cu",
             "replaces": "matchtigs_tpu/ops/sssp.py:299",
-            "launches": pool_launches,
+            "launches": pool_launches + sum(
+                launches["sssp_pool"] for launches in (stage_launches["pool"], *w_launches)),
             "max_abs_err": max(c["max_abs_err"] for c in checks),
             "ms": main_ms,
             "plain_ms": pool_plain_ms,
+            "bound_ms": pool_bound[0],
+            "bound_by": pool_bound[1],
+            "library_ms": None,
         },
         {
             "name": "sssp_wide",
             "route": "cuda",
             "source": "matchtigs_tpu_torch/csrc/sssp_wide.cu",
             "replaces": "matchtigs_tpu/ops/sssp.py:133",
-            "launches": wide_launches,
+            "launches": wide_launches + stage_launches["batch"]["sssp_wide"],
             "max_abs_err": max(r["max_abs_err"] for r in wide),
             "ms": wide_main["kernel_ms"],
             "plain_ms": wide_main["plain_on_gpu_ms"],
+            "bound_ms": wide_bound[0],
+            "bound_by": wide_bound[1],
+            "library_ms": None,
         },
         {
             "name": "sssp_compact",
@@ -482,6 +711,35 @@ def main(argv=None) -> int:
             "max_abs_err": compact_err,
             "ms": compact_ms,
             "plain_ms": compact_plain_ms,
+            "bound_ms": compact_bound[0],
+            "bound_by": compact_bound[1],
+            "library_ms": compact_library_ms,
+        },
+        {
+            "name": "mesh_sort",
+            "route": "cuda",
+            "source": "matchtigs_tpu_torch/csrc/mesh_sort.cu",
+            "replaces": "matchtigs_tpu/parallel/mesh.py:413",
+            "launches": sum(w["mesh_sort"] for w in w_launches),
+            "max_abs_err": sort_err,
+            "ms": sort_ms,
+            "plain_ms": sort_plain_ms,
+            "bound_ms": sort_roof[0],
+            "bound_by": sort_roof[1],
+            "library_ms": sort_library_ms,
+        },
+        {
+            "name": "mesh_merge_split",
+            "route": "cuda",
+            "source": "matchtigs_tpu_torch/csrc/mesh_sort.cu",
+            "replaces": "matchtigs_tpu/parallel/mesh.py:445",
+            "launches": sum(w["mesh_merge_split"] for w in w_launches),
+            "max_abs_err": merge_err,
+            "ms": merge_ms,
+            "plain_ms": merge_plain_ms,
+            "bound_ms": merge_bound[0],
+            "bound_by": merge_bound[1],
+            "library_ms": merge_library_ms,
         },
     ]}), flush=True)
     print(gpu, flush=True)
@@ -490,6 +748,79 @@ def main(argv=None) -> int:
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}), flush=True)
+    return 0
+
+
+def run_mesh_workers(genome_length: int) -> list[dict]:
+    """Start this script's ``--mesh-worker`` twice (one gloo group, both on
+    the card) and return each rank's results.  Both share one deadline,
+    WORKER_TIMEOUT_S from the start; a worker that fails or outlasts it
+    fails the run, and both are stopped.  Their output goes to files, so a
+    worker never blocks on a full pipe."""
+    port = free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [Path(tmp) / f"rank{r}.npz" for r in range(2)]
+        logs = [Path(tmp) / f"rank{r}.log" for r in range(2)]
+        procs = []
+        try:
+            for r in range(2):
+                with open(logs[r], "wb") as log:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, str(Path(__file__).resolve()), "--mesh-worker",
+                         str(r), "2", str(port), str(outs[r]), "--genome-length",
+                         str(genome_length)],
+                        stdout=log, stderr=subprocess.STDOUT,
+                    ))
+            deadline = time.monotonic() + WORKER_TIMEOUT_S
+            # wait for both, or stop at the first failure
+            while (any(p.poll() is None for p in procs)
+                   and not any(p.poll() for p in procs)
+                   and time.monotonic() < deadline):
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, p in enumerate(procs):
+            tail = logs[r].read_text(errors="replace")[-4000:]
+            check(p.returncode == 0, f"mesh worker {r} failed ({p.returncode}):\n{tail}")
+        return [dict(np.load(o)) for o in outs]
+
+
+def mesh_worker(rank: str, world: str, port: str, out: str, genome_length: int) -> int:
+    """One process of ``mesh_two_process``: join the group, load the cached
+    flagship, run greedy matchtigs over the mesh of every visible card (one
+    shard per process here), and save the walks and the kernel launches;
+    rank 0 also saves the host engine's walks."""
+    from matchtigs_tpu_torch import testing
+    from matchtigs_tpu_torch.algos.greedytigs import GreedytigConfig, compute_greedytigs
+    from matchtigs_tpu_torch.graph.build import build_bigraph_from_unitigs
+    from matchtigs_tpu_torch.ops import sssp
+    from matchtigs_tpu_torch.parallel.mesh import initialize_distributed
+
+    if not torch.cuda.is_available():
+        raise SystemExit("mesh worker: no CUDA device")
+    initialize_distributed(f"localhost:{port}", int(world), int(rank),
+                           timeout_s=COLLECTIVE_TIMEOUT_S)
+    store, _, k = testing.make_pangenome_store(
+        genome_length=genome_length, k=K, n_strains=N_STRAINS,
+        mutation_rate=MUTATION_RATE, seed=SEED, cache_dir=str(DATA_CACHE),
+        with_repeats=True,
+    )
+    g = build_bigraph_from_unitigs(store, k)
+    empty = np.empty(0, dtype=np.int64)
+    host = compute_greedytigs(g.copy(), GreedytigConfig(k=k, engine="host")) if rank == "0" else None
+    sssp.reset_kernel_launches()
+    t = time.monotonic()
+    tigs = compute_greedytigs(g, GreedytigConfig(k=k, use_mesh=True))
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t
+    np.savez(out, flat=tigs.flat, offsets=tigs.offsets, seconds=seconds,
+             launches=json.dumps(sssp.KERNEL_LAUNCHES),
+             host_flat=empty if host is None else host.flat,
+             host_offsets=empty if host is None else host.offsets)
+    torch.distributed.destroy_process_group()
     return 0
 
 

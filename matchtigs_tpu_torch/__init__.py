@@ -3,7 +3,9 @@
 The port of ``matchtigs_tpu`` (JAX) to NVIDIA Hopper: the bounded
 shortest-path search of greedy matchtigs runs as hand-written CUDA
 kernels (``csrc/sssp_pool.cu``, ``csrc/sssp_wide.cu``,
-``csrc/sssp_compact.cu``) in every single-device mode; the host layers
+``csrc/sssp_compact.cu``) in every single-device mode, and over a mesh of
+devices and processes (``parallel/mesh.py``, with the acceptance sort in
+``csrc/mesh_sort.cu``); the host layers
 (io, graph, matching, Euler decomposition, the native C++ library) are
 copies of the JAX package's, so this package imports neither ``jax`` nor
 ``matchtigs_tpu``.

@@ -1,4 +1,4 @@
-# Ported from matchtigs_tpu/algos/greedytigs.py: the single-device stage with its capacity ladder, overlapped with the host-routed Dijkstra; no mesh.
+# Ported from matchtigs_tpu/algos/greedytigs.py: the single-device stage with its capacity ladder, overlapped with the host-routed Dijkstra, and the mesh path over parallel/mesh.py.
 """Greedy matchtigs: near-optimal tigs with bounded k-mer repetition.
 
 Capability-equivalent of ``GreedytigAlgorithm``
@@ -9,7 +9,9 @@ Capability-equivalent of ``GreedytigAlgorithm``
    :mod:`matchtigs_tpu_torch.ops.sssp` for most sources, the native host
    Dijkstra for dense-tangle sources (concurrently with the first stage);
    sources whose ball overflowed a stage's working set finish on the host
-   Dijkstra or re-run on the device at 4x capacity (the ladder);
+   Dijkstra or re-run on the device at 4x capacity (the ladder); with a
+   mesh (:mod:`matchtigs_tpu_torch.parallel.mesh`) the sources are striped
+   over its shards and the host work over its processes;
 3. deterministic global greedy matching over the candidate triples
    (:func:`matchtigs_tpu_torch.ops.matching.greedy_accept`);
 4. accepted paths become cheap dummy biedges (weight = distance < k); the
@@ -46,8 +48,15 @@ class GreedytigConfig:
     initial_capacity: int = 4
     # The ladder's last capacity: sources still overflowing there raise.
     max_capacity: int = 1 << 16
-    # Multi-device sharding is not ported: "auto" and False run on one
-    # device, True raises.
+    # Device of the search stage: "cuda" (the current card; every visible
+    # card as mesh shards), a named device such as "cuda:1", or "cpu" (the
+    # kernels' plain torch versions).  A list names the mesh's shards; a
+    # device may repeat.  Never guessed: engine="device" without CUDA
+    # raises unless this names the CPU.
+    device: str | torch.device | list = "cuda"
+    # Shard the device stage and the acceptance sort over a mesh
+    # (parallel/mesh.py): "auto" when it has more than one shard (devices
+    # or processes), True even with one shard, False never.
     use_mesh: bool | str = "auto"
     # Overflow handling: "host" finishes capacity-overflow sources with
     # the native C++ Dijkstra; "ladder" re-runs them on the device at 4x
@@ -65,10 +74,9 @@ class GreedytigConfig:
     host_route_threshold: int = 1
     # Threads for the native host Dijkstra (None = all cores).
     host_threads: int | None = None
-    # Search engine: "auto" uses the device kernel when a CUDA device is
+    # Search engine: "auto" uses the device stage when a CUDA device is
     # present and the native host Dijkstra otherwise; "device"/"host"
-    # force one side ("device" without CUDA runs the kernel's plain torch
-    # version on the CPU).
+    # force one side.
     engine: str = "auto"
     # Opt-in per-source search counters (ball-size histogram, max/avg) —
     # the analog of the reference's --dijkstra-performance-data-type
@@ -155,12 +163,9 @@ class SearchStats:
 
 
 def _check_config(config: GreedytigConfig) -> None:
-    """Reject the options whose code paths are not ported yet."""
-    if config.use_mesh is True:
-        raise NotImplementedError(
-            "use_mesh=True: the multi-device layer (K6/K7 on "
-            "torch.distributed) is a ROADMAP item of the port"
-        )
+    """Reject unknown modes."""
+    if config.use_mesh not in ("auto", True, False):
+        raise ValueError(f"unknown use_mesh: {config.use_mesh!r}")
     if config.overflow_mode not in ("host", "ladder"):
         raise ValueError(f"unknown overflow_mode: {config.overflow_mode!r}")
     if config.device_schedule not in ("pool", "batch"):
@@ -193,11 +198,40 @@ def _use_host_engine(config: GreedytigConfig) -> bool:
     return not torch.cuda.is_available()
 
 
-def _stage_device() -> torch.device:
-    """The current CUDA device when present, else the CPU."""
-    if torch.cuda.is_available():
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
+def _stage_devices(config: GreedytigConfig) -> list[torch.device]:
+    """The devices ``config.device`` names: "cuda" without an index is the
+    current card, or under a mesh every visible card.  Raises when it names
+    CUDA and there is none."""
+    named = config.device if isinstance(config.device, (list, tuple)) else [config.device]
+    devices = [torch.device(d) for d in named]
+    if not devices:
+        raise ValueError("GreedytigConfig.device names no device")
+    if any(d.type == "cuda" for d in devices) and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"the device stage was asked for {config.device!r} and no CUDA "
+            "device is present; pass device='cpu' to run it on the CPU"
+        )
+    if devices == [torch.device("cuda")]:
+        if config.use_mesh is not False:
+            return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        return [torch.device("cuda", torch.cuda.current_device())]
+    return devices
+
+
+def _stage_placement(config: GreedytigConfig):
+    """(devices, mesh) of the device stage; the mesh is None for the
+    single-device path.  Under a process group making the mesh is a
+    collective, so every process calls this once per run."""
+    from ..parallel.mesh import make_mesh, world
+
+    devices = _stage_devices(config)
+    if config.use_mesh is False:
+        if len(devices) > 1:
+            raise ValueError("several devices need use_mesh")
+        return devices, None
+    if config.use_mesh == "auto" and len(devices) == 1 and world()[0] == 1:
+        return devices, None
+    return devices, make_mesh(devices)
 
 
 def split_device_sources(dg, out_nodes: np.ndarray, host_route_threshold: int):
@@ -237,13 +271,16 @@ def collect_candidates(
     config: GreedytigConfig,
     stats: SearchStats | None = None,
     return_chunks: bool = False,
+    placement=None,
 ) -> Candidates:
     """Run the bounded SSSP and extract (out, in, dist) columns.
 
     ``return_chunks`` skips the final column concatenation and returns
     the per-producer chunk list instead (device extraction, host-routed,
     overflow tail): greedy acceptance packs chunks straight into its
-    sort key.
+    sort key.  ``placement`` is the stage's ``(devices, mesh)`` when the
+    caller has made it already (``compute_greedytigs`` reuses its mesh for
+    the acceptance sort); by default it is made here.
     """
     _check_config(config)
     stats = stats if stats is not None else SearchStats()
@@ -269,14 +306,20 @@ def collect_candidates(
         stats.candidates = len(res)
         return [res] if return_chunks else res
 
+    devices, mesh = placement if placement is not None else _stage_placement(config)
     t_phase = time.monotonic()
     dg = build_device_graph(g)
     logger.info("Device graph build: %.2fs", time.monotonic() - t_phase)
-    device = _stage_device()
     # Upload the adjacency first (once per graph, device and layout).
     from ..ops.sssp import _can_pack_adj, batched_bounded_sssp_dispatch
+    from ..parallel.mesh import (
+        allgather_candidates,
+        process_source_slice,
+        sharded_bounded_sssp_dispatch,
+    )
 
-    dg.device_buffers(device, adj_packed=_can_pack_adj(dg, k - 1))
+    for device in devices if mesh is None else mesh.devices:
+        dg.device_buffers(device, adj_packed=_can_pack_adj(dg, k - 1))
     chunks: list[Candidates] = []
 
     pending, hard_sources = split_device_sources(
@@ -294,22 +337,35 @@ def collect_candidates(
         """One asynchronous stage over ``pending`` at ``capacity``."""
         stats.stage_sources.append(len(pending))
         stats.capacity_final = capacity
-        return time.monotonic(), batched_bounded_sssp_dispatch(
-            dg, pending, k - 1, capacity, device,
+        t = time.monotonic()
+        if mesh is not None:
+            return t, sharded_bounded_sssp_dispatch(
+                dg, pending, k - 1, capacity, mesh,
+                schedule=config.device_schedule,
+            )
+        return t, batched_bounded_sssp_dispatch(
+            dg, pending, k - 1, capacity, devices[0],
             schedule=config.device_schedule,
         )
 
     # One stage per capacity: an asynchronous launch and one synchronizing
     # copy back; the host-routed Dijkstra runs on the CPU while the first
     # stage computes.  Overflowed sources finish on the host, or go to the
-    # next stage at 4x capacity.
+    # next stage at 4x capacity.  Under a mesh each process runs the host
+    # Dijkstra on its slice of the sources and the candidates are gathered
+    # on this thread, after the stages, so every process calls the same
+    # collectives in the same order.
     stage = launch() if len(pending) else None
+    routed = None
     if hard_sources is not None:
         t_h = time.monotonic()
         res = host_search(
-            dg, hard_sources, k - 1, in_mask, n_threads=config.host_threads
+            dg, hard_sources if mesh is None else process_source_slice(hard_sources),
+            k - 1, in_mask, n_threads=config.host_threads,
         )
-        if len(res):
+        if mesh is not None:
+            routed = res
+        elif len(res):
             chunks.append(res)
         logger.info(
             "Host-routed Dijkstra (%d sources) during the device stage: "
@@ -345,8 +401,11 @@ def collect_candidates(
             stats.stage_sources.append(n_overflow)
             t_tail = time.monotonic()
             tail = host_search(
-                dg, pending, k - 1, in_mask, n_threads=config.host_threads
+                dg, pending if mesh is None else process_source_slice(pending),
+                k - 1, in_mask, n_threads=config.host_threads,
             )
+            if mesh is not None:
+                tail = allgather_candidates(tail)
             if len(tail):
                 chunks.append(tail)
             logger.info(
@@ -364,6 +423,10 @@ def collect_candidates(
             n_overflow, capacity,
         )
         stage = launch()
+    if routed is not None:
+        routed = allgather_candidates(routed)
+        if len(routed):
+            chunks.append(routed)
 
     if return_chunks:
         stats.candidates = sum(len(c) for c in chunks)
@@ -390,10 +453,14 @@ def compute_greedytigs(
         int(in_mask.sum()),
     )
 
+    _check_config(config)
+    placement = None if _use_host_engine(config) else _stage_placement(config)
+    mesh = None if placement is None else placement[1]
     t0 = time.monotonic()
     stats = stats if stats is not None else SearchStats()
     candidates = collect_candidates(
-        g, out_nodes, in_mask, k, config, stats, return_chunks=True
+        g, out_nodes, in_mask, k, config, stats, return_chunks=True,
+        placement=placement,
     )
     stats.log()
     if config.performance_counters and stats.candidates:
@@ -408,7 +475,21 @@ def compute_greedytigs(
     )
 
     t0 = time.monotonic()
-    accepted = greedy_accept(g, candidates, mult)
+    accepted = None
+    if mesh is not None and isinstance(candidates, list):
+        # The acceptance sort runs over the mesh; the multiplicity scan
+        # stays on the host.  Ids or distances beyond the packed key's
+        # ranges take the host accept.
+        from ..ops.matching import greedy_accept_sorted_keys, pack_accept_keys
+        from ..parallel.mesh import sharded_accept_key_sort
+
+        keys = pack_accept_keys(candidates)
+        if keys is not None:
+            sorted_keys = sharded_accept_key_sort(keys, mesh)
+            accepted = greedy_accept_sorted_keys(g, sorted_keys, mult)
+            logger.info("Acceptance sort ran over %d mesh shards", mesh.size)
+    if accepted is None:
+        accepted = greedy_accept(g, candidates, mult)
     logger.info(
         "Accepted %d paths as cheap dummy edges in %.2fs",
         len(accepted),
@@ -447,9 +528,17 @@ def compute_greedytigs(
     logger.info("Balancing took %.2fs", time.monotonic() - t0)
 
     t0 = time.monotonic()
-    cycles = euler.eulerian_bicycle_decomposition(g)
-    logger.info("Found %d Eulerian bicycles", len(cycles))
-    tigs = euler.break_cycles(g, cycles, k)
+    if mesh is not None and mesh.world_size > 1:
+        # Euler + break split over the processes by component; the merge
+        # restores the single-process tig stream.
+        from ..parallel.mesh import distributed_euler_break
+
+        tigs = distributed_euler_break(g, k)
+        logger.info("Euler+break ran over %d processes", mesh.world_size)
+    else:
+        cycles = euler.eulerian_bicycle_decomposition(g)
+        logger.info("Found %d Eulerian bicycles", len(cycles))
+        tigs = euler.break_cycles(g, cycles, k)
     logger.info(
         "Found %d greedytigs (euler+break %.2fs, total %.2fs)",
         len(tigs),

@@ -102,8 +102,16 @@ def build_parser() -> argparse.ArgumentParser:
         "--use-mesh",
         choices=("auto", "true", "false"),
         default="auto",
-        help="shard the search over several devices (not ported yet: "
-        "auto runs on one device)",
+        help="shard the search and the acceptance sort over a mesh of "
+        "devices (parallel/mesh.py): auto when --device gives more than "
+        "one (every visible card under cuda), true even with one",
+    )
+    p.add_argument(
+        "--device",
+        default="cuda",
+        help="device of the search stage: cuda (the card; every visible "
+        "card under --use-mesh), cuda:N, or cpu (the kernels' plain "
+        "versions; for tests)",
     )
     p.add_argument(
         "--debug-print-graph",
@@ -284,6 +292,7 @@ def main(argv: list[str] | None = None) -> int:
             use_mesh={"auto": "auto", "true": True, "false": False}[
                 opts.use_mesh
             ],
+            device=opts.device,
             performance_counters=_want_counters(opts),
             host_strategy=_host_strategy(opts),
         ),

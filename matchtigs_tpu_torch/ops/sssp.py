@@ -57,7 +57,10 @@ SCHEDULES = ("pool", "batch")
 
 # Launches per kernel by its wrapper, for runs that must show the main
 # path went through it.
-KERNEL_LAUNCHES = {"sssp_pool": 0, "sssp_wide": 0, "sssp_compact": 0}
+KERNEL_LAUNCHES = {
+    "sssp_pool": 0, "sssp_wide": 0, "sssp_compact": 0,
+    "mesh_sort": 0, "mesh_merge_split": 0,
+}
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -141,6 +144,8 @@ def build_kernels() -> dict[str, ctypes.CDLL]:
         (libs["sssp_compact"].sssp_compact_launch, [
             vp, vp, ci, ci, ci, ci, ll, vp, vp, ci, vp, vp, vp, vp,
         ]),
+        (libs["mesh_sort"].mesh_sort_launch, [vp, vp, vp, ll, vp]),
+        (libs["mesh_sort"].mesh_merge_split_launch, [vp, vp, ll, ci, vp, vp]),
     ):
         fn.restype = ci
         fn.argtypes = args
@@ -496,11 +501,7 @@ class DispatchedStage:
                 return _compact_candidates(dg, vals, counts, sources, in_mask), over
         rows, dist, _ = self.fetch()
         self.bytes_fetched += rows.nbytes + (0 if dist is None else dist.nbytes)
-        if dist is None:
-            tri = extract_packed_candidates(dg, rows, sources, ~over, in_mask)
-        else:
-            tri = extract_unpacked_candidates(dg, rows, dist, sources, ~over, in_mask)
-        return tri, over
+        return extract_candidates(dg, rows, dist, sources, ~over, in_mask), over
 
     def kernel_seconds(self) -> float | None:
         """Device time of the launch (CUDA events), after a fetch; None on
@@ -605,14 +606,24 @@ def batched_bounded_sssp(
     rows, dist, over = batched_bounded_sssp_dispatch(
         dg, sources, max_weight, capacity, device, schedule=schedule
     ).fetch()
-    if dist is not None:
+    if dist is not None or return_packed:
         return rows, dist, over
-    if return_packed:
-        return rows, None, over
+    return (*unpack_rows(rows), over)
+
+
+def unpack_rows(rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(nodes, dist) of packed rows, empty slots (sentinel, INF)."""
     dist = rows & DIST_CAP
-    nodes = rows >> DIST_BITS
     np.putmask(dist, dist == DIST_CAP, INF)
-    return nodes, dist, over
+    return rows >> DIST_BITS, dist
+
+
+def extract_candidates(dg, rows, dist, sources, done, in_mask) -> Candidates:
+    """Candidates of the ``done`` rows: packed rows (``dist`` None) through
+    the native extraction, unpacked ones through numpy."""
+    if dist is None:
+        return extract_packed_candidates(dg, rows, sources, done, in_mask)
+    return extract_unpacked_candidates(dg, rows, dist, sources, done, in_mask)
 
 
 def extract_unpacked_candidates(

@@ -53,7 +53,7 @@ def test_cli_sssp_options_byte_identical_to_jax(
     unitig_fa, tmp_path, monkeypatch, options
 ):
     """Both CLIs on their device engines (the JAX stage on the XLA CPU
-    backend, the port's plain version)."""
+    backend, the port's plain version on the CPU it names)."""
     from matchtigs_tpu.algos import greedytigs as j_greedytigs
     from matchtigs_tpu_torch.algos import greedytigs as t_greedytigs
 
@@ -63,9 +63,10 @@ def test_cli_sssp_options_byte_identical_to_jax(
     outs = []
     for side, main in (("jax", j_main), ("torch", t_main)):
         out = tmp_path / f"{side}.fa"
+        device = ["--device", "cpu"] if side == "torch" else []
         rc = main(
             ["--fa-in", str(path), "-k", str(k), "--greedytigs-fa-out", str(out),
-             "--use-mesh", "false", "--log-level", "Warning", *options]
+             "--use-mesh", "false", "--log-level", "Warning", *device, *options]
         )
         assert rc == 0
         outs.append(out.read_bytes())

@@ -21,8 +21,9 @@ from matchtigs_tpu_torch.algos.greedytigs import (
 )
 from matchtigs_tpu_torch.graph.build import build_bigraph_from_unitigs
 from matchtigs_tpu_torch.interop import device_graph_from_numpy
-from matchtigs_tpu_torch.ops import sssp
+from matchtigs_tpu_torch.ops import mesh_sort, sssp
 from matchtigs_tpu_torch.ops.device_graph import build_device_graph
+from matchtigs_tpu_torch.parallel import mesh
 
 pytestmark = pytest.mark.cuda
 
@@ -164,7 +165,8 @@ def test_device_engine_runs_the_kernel(cuda_device):
         got = compute_greedytigs(gg, GreedytigConfig(k=k, **option), stats)
         launches = dict(sssp.KERNEL_LAUNCHES)
         if not option:  # the default path: one launch of the register kernel
-            assert launches == {"sssp_pool": 1, "sssp_wide": 0, "sssp_compact": 0}
+            assert launches == {"sssp_pool": 1, "sssp_wide": 0, "sssp_compact": 0,
+                                "mesh_sort": 0, "mesh_merge_split": 0}
         assert sum(launches.values()) == len(stats.stage_kernel_times) >= 1
         assert all(t > 0 for t in stats.stage_kernel_times)
         assert np.array_equal(got.flat, want.flat), option
@@ -206,3 +208,105 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
         sssp.wide_sssp(adj, src, k - 1, 5)
     with pytest.raises(ValueError, match="max_weight"):
         sssp.wide_sssp(adj, src.to(cuda_device), 127, 5)  # packed adjacency
+
+
+# the tile boundary (2048 keys), several merge passes, and 2^20 + 3 keys
+SORT_SIZES = [1, 2, 2047, 2048, 2049, 100_000, (1 << 20) + 3]
+
+
+def _keys(n, kind, seed=0):
+    rng = np.random.default_rng(seed + n)
+    if kind == "random":
+        return rng.integers(-(1 << 62), 1 << 62, n, dtype=np.int64)
+    if kind == "duplicates":  # the d << 56 clusters of the acceptance keys
+        return rng.integers(0, 5, n, dtype=np.int64) << 56
+    keys = np.full(n, mesh.KEY_PAD, dtype=np.int64)  # mostly padding
+    keys[: n // 3] = rng.integers(0, 1 << 62, n // 3, dtype=np.int64)
+    return keys
+
+
+@pytest.mark.parametrize("kind", ["random", "duplicates", "padding"])
+@pytest.mark.parametrize("n", SORT_SIZES)
+def test_mesh_sort_matches_plain(cuda_device, n, kind):
+    keys = torch.from_numpy(_keys(n, kind))
+    dev_keys = keys.to(cuda_device)
+    before = sssp.KERNEL_LAUNCHES["mesh_sort"]
+    got = mesh_sort.sort_keys(dev_keys)
+    torch.cuda.synchronize()
+    assert sssp.KERNEL_LAUNCHES["mesh_sort"] == before + 1
+    assert torch.equal(got.cpu(), mesh_sort.sort_keys_plain(keys))
+    assert torch.equal(dev_keys.cpu(), keys)  # the input is left as it was
+
+
+@pytest.mark.parametrize("keep_high", [False, True])
+@pytest.mark.parametrize("L", [1, 7, 2049, 100_000])
+def test_mesh_merge_split_matches_plain(cuda_device, L, keep_high):
+    a = torch.from_numpy(np.sort(_keys(L, "duplicates", seed=1)))
+    b = torch.from_numpy(np.sort(_keys(L, "padding", seed=2)))
+    before = sssp.KERNEL_LAUNCHES["mesh_merge_split"]
+    got = mesh_sort.merge_split(a.to(cuda_device), b.to(cuda_device), keep_high)
+    torch.cuda.synchronize()
+    assert sssp.KERNEL_LAUNCHES["mesh_merge_split"] == before + 1
+    assert torch.equal(got.cpu(), mesh_sort.merge_split_plain(a, b, keep_high))
+
+
+def test_mesh_sort_takes_empty_blocks_and_refuses_two_devices(cuda_device):
+    before = dict(sssp.KERNEL_LAUNCHES)
+    empty = torch.empty(0, dtype=torch.int64, device=cuda_device)
+    assert mesh_sort.sort_keys(empty).numel() == 0
+    assert mesh_sort.merge_split(empty, empty, True).numel() == 0
+    assert sssp.KERNEL_LAUNCHES == before  # nothing to launch
+    with pytest.raises(ValueError, match="one device"):
+        mesh_sort.merge_split(empty, torch.empty(0, dtype=torch.int64), False)
+
+
+def test_sharded_stage_on_four_shards_of_one_card(cuda_device):
+    """K6: four shards on one card launch the register kernel once each;
+    the real rows equal the single-device stage's."""
+    dg, k = _device_graph(CASES[0])
+    sources = np.arange(dg.n_nodes, dtype=np.int32)
+    four = mesh.make_mesh([cuda_device] * 4)
+    for schedule in sssp.SCHEDULES:
+        sssp.reset_kernel_launches()
+        rows, _, over, srcs = mesh.sharded_bounded_sssp(
+            dg, sources, k - 1, 4, four, schedule=schedule
+        )
+        launched = dict(sssp.KERNEL_LAUNCHES)
+        assert launched["sssp_pool" if schedule == "pool" else "sssp_wide"] == 4
+        real = srcs != dg.n_nodes
+        one_rows, _, one_over = sssp.batched_bounded_sssp(
+            dg, srcs[real], k - 1, 4, return_packed=True, schedule=schedule,
+            device=cuda_device,
+        )
+        assert np.array_equal(over[real], one_over)
+        done = ~one_over
+        assert np.array_equal(rows[real][done], one_rows[done])
+
+
+def test_sharded_accept_sort_on_four_shards_of_one_card(cuda_device):
+    """K7: 4 block sorts and 12 merge-splits (4 rounds: 2, 1, 2, 1 pairs)."""
+    keys = _keys(300_001, "duplicates") | np.arange(300_001, dtype=np.int64)
+    sssp.reset_kernel_launches()
+    got = mesh.sharded_accept_key_sort(keys, mesh.make_mesh([cuda_device] * 4))
+    assert np.array_equal(got, np.sort(keys))
+    assert sssp.KERNEL_LAUNCHES["mesh_sort"] == 4
+    assert sssp.KERNEL_LAUNCHES["mesh_merge_split"] == 12
+
+
+def test_mesh_greedytigs_on_one_card(cuda_device):
+    store, kmers, k = testing.make_pangenome_store(
+        genome_length=20000, k=13, n_strains=4, mutation_rate=0.02, seed=11,
+        with_repeats=True,
+    )
+    g = build_bigraph_from_unitigs(store, k)
+    want = compute_greedytigs(g.copy(), GreedytigConfig(k=k, engine="host"))
+    sssp.reset_kernel_launches()
+    gg = g.copy()
+    got = compute_greedytigs(gg, GreedytigConfig(
+        k=k, use_mesh=True, device=[cuda_device] * 4,
+    ))
+    assert sssp.KERNEL_LAUNCHES["sssp_pool"] == 4
+    assert sssp.KERNEL_LAUNCHES["mesh_sort"] == 4
+    assert np.array_equal(got.flat, want.flat)
+    assert np.array_equal(got.offsets, want.offsets)
+    testing.assert_tigs_spell_kmer_set(gg, got, store, k, kmers, allow_duplicates=True)

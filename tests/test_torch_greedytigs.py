@@ -6,6 +6,7 @@ import hashlib
 
 import numpy as np
 import pytest
+import torch
 
 from matchtigs_tpu import testing as jtesting
 from matchtigs_tpu.algos.greedytigs import GreedytigConfig as JConfig
@@ -56,7 +57,7 @@ def test_greedytigs_identical_to_jax(name):
     for engine in ("device", "host"):
         g = tg.copy()
         stats = SearchStats()
-        got = t_greedy(g, TConfig(k=tk, engine=engine), stats=stats)
+        got = t_greedy(g, TConfig(k=tk, engine=engine, device="cpu"), stats=stats)
         assert np.array_equal(got.flat, want_dev.flat), engine
         assert np.array_equal(got.offsets, want_dev.offsets), engine
         ran_stage = engine == "device" and stats.sources > 0
@@ -88,7 +89,7 @@ def test_one_launch_stage_identical_to_jax_chunked_stage():
     tg = t_build(tstore, tk)
     stats = SearchStats()
     got = t_greedy(tg.copy(), TConfig(
-        k=tk, engine="device", initial_capacity=8,
+        k=tk, engine="device", device="cpu", initial_capacity=8,
     ), stats=stats)
     assert stats.stage_sources[0] >= 8 * batch, "graph too small for chunking"
     assert len(stats.stage_times) == 1
@@ -102,16 +103,13 @@ def test_one_launch_stage_identical_to_jax_chunked_stage():
     ids=["mesh", "ladder"],
 )
 def test_unported_options_raise(option):
-    """The mesh is not ported and raises; the ladder, once refused here,
-    now runs and gives the host-tail run's walks."""
+    """The mesh and the ladder, once refused here, now run and give the
+    default run's walks (the mesh here on one CPU shard; the mesh tests are
+    in test_torch_mesh.py)."""
     store, _, k = ttesting.make_unitig_store(genome_length=3000, k=9, seed=0)
     g = t_build(store, k)
-    if "use_mesh" in option:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_greedy(g, TConfig(k=k, engine="device", **option))
-        return
-    want = t_greedy(g.copy(), TConfig(k=k, engine="device"))
-    got = t_greedy(g.copy(), TConfig(k=k, engine="device", **option))
+    want = t_greedy(g.copy(), TConfig(k=k, engine="device", device="cpu"))
+    got = t_greedy(g.copy(), TConfig(k=k, engine="device", device="cpu", **option))
     assert np.array_equal(got.flat, want.flat)
     assert np.array_equal(got.offsets, want.offsets)
 
@@ -132,7 +130,7 @@ def test_ladder_identical_to_jax(name):
     tg = t_build(tstore, tk)
     stats = SearchStats()
     g = tg.copy()
-    got = t_greedy(g, TConfig(k=tk, engine="device", overflow_mode="ladder"), stats)
+    got = t_greedy(g, TConfig(k=tk, engine="device", device="cpu", overflow_mode="ladder"), stats)
     assert len(stats.stage_sources) >= 2
     assert stats.stage_sources == sorted(stats.stage_sources, reverse=True)
     assert stats.capacity_final == 4 ** len(stats.stage_sources)
@@ -140,7 +138,7 @@ def test_ladder_identical_to_jax(name):
     assert stats.retries == len(stats.stage_sources) - 1
     assert np.array_equal(got.flat, want.flat)
     assert np.array_equal(got.offsets, want.offsets)
-    host_tail = t_greedy(tg.copy(), TConfig(k=tk, engine="device"))
+    host_tail = t_greedy(tg.copy(), TConfig(k=tk, engine="device", device="cpu"))
     assert np.array_equal(got.flat, host_tail.flat)
     ttesting.assert_tigs_spell_kmer_set(g, got, tstore, tk, kmers, allow_duplicates=True)
 
@@ -149,7 +147,7 @@ def test_ladder_exhausts_max_capacity():
     store, _, k = ttesting.make_unitig_store(genome_length=4000, k=9, seed=11)
     with pytest.raises(RuntimeError, match="capacity 4 exhausted"):
         t_greedy(t_build(store, k), TConfig(
-            k=k, engine="device", overflow_mode="ladder", max_capacity=4,
+            k=k, engine="device", device="cpu", overflow_mode="ladder", max_capacity=4,
         ))
 
 
@@ -168,7 +166,7 @@ def test_capacity_and_schedule_identical_to_jax(option):
     ))
     tstore, _, tk = _store(ttesting, kind, case)
     stats = SearchStats()
-    got = t_greedy(t_build(tstore, tk), TConfig(k=tk, engine="device", **option), stats)
+    got = t_greedy(t_build(tstore, tk), TConfig(k=tk, engine="device", device="cpu", **option), stats)
     assert stats.stage_sources[0] > 0
     assert np.array_equal(got.flat, want.flat)
     assert np.array_equal(got.offsets, want.offsets)
@@ -186,11 +184,27 @@ def test_large_k_identical_to_jax(k):
     for engine in ("device", "host"):
         g = tg.copy()
         stats = SearchStats()
-        got = t_greedy(g, TConfig(k=tk, engine=engine), stats)
+        got = t_greedy(g, TConfig(k=tk, engine=engine, device="cpu"), stats)
         assert np.array_equal(got.flat, want.flat), engine
         assert np.array_equal(got.offsets, want.offsets), engine
         assert bool(stats.stage_times) == (engine == "device")
         ttesting.assert_tigs_spell_kmer_strings(g, got, tstore, tk, kmers)
+
+
+@pytest.mark.parametrize("option", [dict(), dict(use_mesh=True)], ids=["one", "mesh"])
+def test_device_engine_without_cuda_raises(monkeypatch, option):
+    """engine="device" names the device stage; without CUDA it raises
+    unless the config names the CPU, and the CPU is never chosen for it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    store, _, k = ttesting.make_unitig_store(genome_length=3000, k=9, seed=0)
+    g = t_build(store, k)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_greedy(g.copy(), TConfig(k=k, engine="device", **option))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_greedy(g.copy(), TConfig(k=k, engine="device", device="cuda:0", **option))
+    host = t_greedy(g.copy(), TConfig(k=k, **option))  # "auto": the host engine
+    got = t_greedy(g.copy(), TConfig(k=k, engine="device", device="cpu", **option))
+    assert np.array_equal(got.flat, host.flat)
 
 
 def test_config_rejects_unknown_modes():
@@ -199,4 +213,4 @@ def test_config_rejects_unknown_modes():
     for option in (dict(overflow_mode="x"), dict(device_schedule="x"),
                    dict(initial_capacity=0)):
         with pytest.raises(ValueError):
-            t_greedy(g.copy(), TConfig(k=k, engine="device", **option))
+            t_greedy(g.copy(), TConfig(k=k, engine="device", device="cpu", **option))

@@ -33,6 +33,37 @@ def test_host_greedy_run_imports_no_jax():
     assert "LEAKED []" in proc.stdout
 
 
+_MESH_RUN = """
+import sys
+import numpy as np
+import matchtigs_tpu_torch as mt
+from matchtigs_tpu_torch import testing
+from matchtigs_tpu_torch.ops import mesh_sort
+from matchtigs_tpu_torch.parallel import mesh
+store, kmers, k = testing.make_unitig_store(genome_length=3000, k=9, seed=0)
+g = mt.build_bigraph_from_unitigs(store, k)
+tigs = mt.compute_greedytigs(g, mt.GreedytigConfig(
+    k=k, engine="device", device=["cpu"] * 2, use_mesh=True))
+testing.assert_tigs_spell_kmer_set(g, tigs, store, k, kmers, allow_duplicates=True)
+keys = np.arange(100, dtype=np.int64)[::-1].copy()
+assert np.array_equal(mesh.sharded_accept_key_sort(keys, mesh.make_mesh(["cpu"] * 3)), keys[::-1])
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "matchtigs_tpu"))
+print("LEAKED", bad)
+assert not bad, bad
+"""
+
+
+def test_mesh_run_imports_no_jax():
+    """The mesh layer (parallel/mesh.py, ops/mesh_sort.py) on CPU shards."""
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    proc = subprocess.run(
+        [sys.executable, "-c", _MESH_RUN],
+        cwd=PKG.parent, env=env, capture_output=True, text=True, timeout=600,
+    )
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    assert "LEAKED []" in proc.stdout
+
+
 def test_no_module_of_the_port_names_jax():
     for path in PKG.rglob("*.py"):
         tree = ast.parse(path.read_text())
