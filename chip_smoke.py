@@ -10,16 +10,18 @@ in the checkout and holding each against its plain PyTorch version:
 - ``wide_vs_plain``: the wide kernel (``csrc/sssp_wide.cu``), both
   schedules, packed and unpacked, on the sources that overflow C=4;
 - ``compact_vs_full``: the compaction kernel (``csrc/sssp_compact.cu``) on
-  the C=4 rows of all device sources, and the compact candidate download
-  against the full one;
+  the C=4 rows of all device sources, at C=1, 128 and 5000 (rows longer
+  than its tile) with budgets below the total (``compact_case``), and the
+  compact candidate download against the full one;
 - ``cli_device``: the default CLI (one register-kernel launch);
 - ``greedy_device_vs_host``: library runs of both engines;
 - ``cli_ladder``: the CLI with ``--sssp-overflow-mode ladder`` (the wide
   kernel serves the stages at C >= 256);
 - ``cli_k131``: the CLI at k=131 on a string-generated input (unpacked
   adjacency and rows);
-- ``mesh_sort_vs_plain``: the mesh's sort and merge-split kernel
-  (``csrc/mesh_sort.cu``) on the flagship's acceptance keys and edge cases;
+- ``mesh_sort_vs_plain``: the mesh's radix sort and merge-split kernels
+  (``csrc/mesh_sort.cu``) on the flagship's acceptance keys and edge cases
+  (sizes around the sort's tile, signed keys, constant digits);
 - ``mesh_stage``: the sharded search stage on a 4-shard mesh of the one
   card, both schedules, against the single-device stage;
 - ``mesh_accept``: the sharded acceptance sort on that mesh, and the accept
@@ -36,6 +38,9 @@ of ``compact_vs_full``, ``mesh_sort`` and ``mesh_merge_split`` from
 ``mesh_two_process``.  Each kernel's ``bound_ms`` is the larger of its
 bytes (inputs read once, outputs written once) over the card's memory
 rate and its operations over the card's peak, from this run's inputs.
+Beside the event times of ``sssp_compact``, ``mesh_sort`` and their library
+calls, ``*_device_ms`` is the device time of the call's kernels alone
+(``torch.profiler``).
 
     python3 chip_smoke.py [--genome-length N]
 
@@ -76,7 +81,8 @@ DEEP_BOUND, DEEP_CAPACITY = 130, 256  # the k=131 bound on the flagship
 MAX_BALL = 1 << 16  # GreedytigConfig.max_capacity
 DEVICE_TYPE = "cuda"
 MESH_SHARDS = 4  # in-process shards of the mesh phases, all on the one card
-SORT_EDGE_SIZES = (0, 1, 2049)  # 2049: one key past the kernel's first tile
+SORT_EDGE_SIZES = (0, 1, 2049)  # empty, one key, and an odd size past 2048
+COMPACT_LONG_ROW = 5000  # slots per row above the compaction's 4096-slot tile
 WORKER_TIMEOUT_S = 420  # both mesh workers, load and graph build included
 COLLECTIVE_TIMEOUT_S = 300
 # NVIDIA H100 SXM data sheet: HBM3 rate, and the peak rate outside the
@@ -107,6 +113,59 @@ def kernel_ms(fn, reps: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 5) -> tuple[float, dict, list]:
+    """Device time of one call of ``fn`` from ``torch.profiler``, after a
+    warm-up: (milliseconds, {kernel name: [milliseconds, launches]},
+    [milliseconds of each launch, in launch order]), summed over the
+    kernels and memsets it runs on the card.  Each of ``reps`` calls is
+    profiled alone; a session that lost device events (fewer than the most
+    any session saw) is left out, and the time is the median of the rest.
+    Unlike ``kernel_ms`` it leaves out the gaps between launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    sessions = []
+    for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        sessions.append(sorted((e.time_range.start, e.time_range.elapsed_us() / 1e3, e.name)
+                               for e in prof.events() if e.device_type == DeviceType.CUDA))
+    full = max(len(x) for x in sessions)
+    check(full > 0, "the profiler saw no device time")
+    complete = [x for x in sessions if len(x) == full]
+
+    def short(name: str) -> str:
+        name = name.replace("(anonymous namespace)::", "")
+        return (name.split("(")[0].strip() or name)[:60]
+
+    by_name: dict[str, list] = {}
+    for x in complete:
+        for _, ms, name in x:
+            entry = by_name.setdefault(short(name), [0.0, 0])
+            entry[0] += ms / len(complete)
+            entry[1] += 1 / len(complete)
+    totals = sorted(sum(ms for _, ms, _ in x) for x in complete)
+    order = [sum(x[i][1] for x in complete) / len(complete) for i in range(full)]
+    return totals[len(totals) // 2], by_name, order
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Mean host milliseconds to enqueue one call of ``fn`` (no synchronize
+    inside the timed loop), after a warm-up: where it is near the event
+    time, the event time measures the launch rate, not the card."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = 1e3 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return ms
 
 
 def roofline(bytes_moved: int, ops: int) -> tuple[float, str]:
@@ -207,9 +266,14 @@ def check(ok: bool, message: str) -> None:
 
 
 def write_fasta(path: Path, store) -> None:
+    """``store`` as gzipped fasta, records ``>i``: the bases decoded in one
+    pass and written in one call."""
+    from matchtigs_tpu_torch.utils import dna
+
+    seq, off = dna.decode_to_ascii(store.codes), store.offsets
     with gzip.open(path, "wb", compresslevel=1) as f:
-        for i in range(len(store)):
-            f.write(b">%d\n%s\n" % (i, store.get_ascii(i)))
+        f.write(b"".join(b">%d\n%s\n" % (i, seq[off[i]:off[i + 1]])
+                         for i in range(len(store))))
 
 
 def spelled_kmer_set(store, k: int) -> np.ndarray:
@@ -379,6 +443,11 @@ def main(argv=None) -> int:
     compact_library_ms = kernel_ms(lambda: torch.masked_select(rows4, valid4))
     check(torch.equal(torch.masked_select(rows4, valid4), pvals[:n_valid]),
           "masked_select disagrees with the compaction")
+    # device time alone: at these sizes the event times above are mostly
+    # the launch rate
+    compact_device_ms, compact_kernels, _ = device_ms(lambda: sssp.compact_rows(*args4))
+    compact_library_device_ms, _, _ = device_ms(lambda: torch.masked_select(rows4, valid4))
+    compact_host_ms = host_ms(lambda: sssp.compact_rows(*args4))
     compact_bound = roofline(
         sum(t.numel() * t.element_size() for t in (rows4, over4, counts, total))
         + 4 * n_valid, 0,
@@ -386,6 +455,23 @@ def main(argv=None) -> int:
     del node4, dist4, valid4
     check(int(total) == int(ptotal) and torch.equal(counts, pcounts)
           and compact_err == 0, "compaction kernel disagrees with its plain version")
+    # more row widths, each with a budget below its total: C = 1 (int8
+    # counts), 128 (int32 counts) and COMPACT_LONG_ROW (rows longer than a
+    # tile, walked in pieces; on the first sources that overflow C=4)
+    for cap, s_cap in ((1, src), (128, src), (COMPACT_LONG_ROW, over_sources[:N_FLAGSHIP_CHECK])):
+        crows, _, cover = sssp.wide_sssp(adj, s_cap.contiguous(), k - 1, cap)
+        _, _, ctotal = sssp.compact_rows_plain(crows, cover, dg.sentinel, k - 1, 0)
+        cbudget = int(ctotal) // 2
+        got = sssp.compact_rows(crows, cover, dg.sentinel, k - 1, cbudget)
+        want = sssp.compact_rows_plain(crows, cover, dg.sentinel, k - 1, cbudget)
+        err = int((got[0].long() - want[0].long()).abs().max()) if cbudget else 0
+        same = (int(got[2]) == int(want[2]) and got[1].dtype == want[1].dtype
+                and torch.equal(got[1], want[1]) and err == 0)
+        phase("compact_case", capacity=cap, sources=len(s_cap), valid_slots=int(ctotal),
+              budget=cbudget, counts_dtype=str(got[1].dtype), max_abs_err=err, equal=same)
+        check(same, f"compaction kernel disagrees with its plain version at C={cap}")
+        compact_err = max(compact_err, err)
+        del crows, cover, got, want
     sssp.reset_kernel_launches()
     t_fetch = time.monotonic()
     full = sssp.batched_bounded_sssp_dispatch(dg, pending, k - 1, CAPACITY, device)
@@ -405,7 +491,10 @@ def main(argv=None) -> int:
     phase("compact_vs_full", seconds=time.monotonic() - t0, sources=len(pending),
           capacity=CAPACITY, valid_slots=int(total), budget=budget,
           kernel_ms=compact_ms, plain_on_gpu_ms=compact_plain_ms,
-          library_ms=compact_library_ms, bound_ms=compact_bound[0],
+          library_ms=compact_library_ms, kernel_device_ms=compact_device_ms,
+          kernel_device_breakdown_ms=compact_kernels,
+          library_device_ms=compact_library_device_ms, host_enqueue_ms=compact_host_ms,
+          bound_ms=compact_bound[0],
           max_abs_err=compact_err, candidates=len(ctri), columns_equal=same,
           bytes_full=full.bytes_fetched, bytes_compact=comp.bytes_fetched,
           full_stage_s=full_s, compact_stage_s=compact_s,
@@ -554,8 +643,17 @@ def main(argv=None) -> int:
     padded[: len(keys)] = keys
     sort_cases = [("flagship", keys), ("two-shard-block", padded[half:])]
     sort_cases += [(f"n={n}", rng.choice(keys, n)) for n in SORT_EDGE_SIZES]
+    sort_cases += [(f"n={n}", rng.choice(keys, n))
+                   for n in (mesh_sort.TILE - 1, mesh_sort.TILE, mesh_sort.TILE + 1)]
     sort_cases += [("all-duplicates", np.full(100_000, keys[len(keys) // 2])),
                    ("all-padding", np.full(3 * mesh_sort.TILE + 5, mesh_mod.KEY_PAD))]
+    # signed keys (the sign bit's digit) and digits constant in every key
+    # (the skipped passes)
+    signed = rng.integers(-(1 << 63), 1 << 63, 1_000_003, dtype=np.int64)
+    sort_cases += [("signed", signed),
+                   ("negative", signed[:300_000] | np.int64(-(1 << 63))),
+                   ("top-byte-only", (signed >> 56 << 56) | 0x0123456789AB),
+                   ("constant-middle", (signed >> 56 << 56) | (signed & 0xFF))]
     sort_err = sort_bad = 0
     for name, case in sort_cases:
         t = torch.from_numpy(np.ascontiguousarray(case, dtype=np.int64)).to(device)
@@ -565,6 +663,14 @@ def main(argv=None) -> int:
     flag_keys = torch.from_numpy(keys).to(device)
     sort_ms = kernel_ms(lambda: mesh_sort.sort_keys(flag_keys))
     sort_library_ms = kernel_ms(lambda: torch.sort(flag_keys))
+    sort_device, sort_kernels, sort_passes = device_ms(lambda: mesh_sort.sort_keys(flag_keys))
+    sort_library_device, _, _ = device_ms(lambda: torch.sort(flag_keys))
+    sort_host = host_ms(lambda: mesh_sort.sort_keys(flag_keys))
+    block_keys = torch.from_numpy(padded[half:]).to(device)
+    block_sort_ms = kernel_ms(lambda: mesh_sort.sort_keys(block_keys))
+    block_sort_device, _, block_passes = device_ms(lambda: mesh_sort.sort_keys(block_keys))
+    block_library_device, _, _ = device_ms(lambda: torch.sort(block_keys))
+    del block_keys
     _, sort_plain_ms = plain_ms(lambda: mesh_sort.sort_keys_plain(flag_keys))
     sort_roof = sort_bound(len(keys), len(keys))
     # merge-split: the flagship keys in two sorted halves, the second padded
@@ -593,6 +699,12 @@ def main(argv=None) -> int:
           sort_mismatches=sort_bad, merge_split_mismatches=merge_bad,
           sort_ms=sort_ms, sort_plain_on_gpu_ms=sort_plain_ms,
           sort_library_ms=sort_library_ms, sort_bound_ms=sort_roof[0],
+          sort_device_ms=sort_device, sort_library_device_ms=sort_library_device,
+          sort_device_breakdown_ms=sort_kernels, sort_launch_device_ms=sort_passes,
+          sort_host_enqueue_ms=sort_host,
+          block_keys=len(padded) - half, block_sort_ms=block_sort_ms,
+          block_sort_device_ms=block_sort_device, block_launch_device_ms=block_passes,
+          block_sort_library_device_ms=block_library_device,
           merge_split_ms=merge_ms, merge_split_plain_on_gpu_ms=merge_plain_ms,
           merge_split_library_ms=merge_library_ms, merge_split_bound_ms=merge_bound[0])
     check(sort_bad == 0 and merge_bad == 0,

@@ -8,23 +8,35 @@
 // keys and the right shard the high L.  Here the keys are signed int64 as
 // they are, and the two parts are two entries:
 //
-//   * mesh_sort_launch sorts n keys ascending.  Each block sorts a tile of
-//     kTile keys in shared memory with a bitonic network (the tile is
-//     padded with INT64_MAX, which sorts to its tail and is never written
-//     back), then ceil(log2(n / kTile)) passes of one merge-path kernel
-//     double the sorted runs: every thread binary-searches where its
-//     diagonal of kItems outputs crosses the two runs, then merges its
-//     outputs sequentially.  The passes alternate between out and tmp,
-//     starting from the one that makes the last pass land in out.
+//   * mesh_sort_launch sorts n keys ascending by a key-only LSD radix sort:
+//     8 passes of 8-bit digits.  The top digit is read with its sign bit
+//     flipped, so negative keys come first; the keys themselves are never
+//     changed.  One kernel reads every key once (16-byte loads) and builds
+//     all 8 digit histograms (per-block shared counters, merged by
+//     atomics); its last block scans them into each digit's global start
+//     and plans the passes: a pass whose digit is the same in every key is
+//     skipped, and the active passes alternate between out and tmp so that
+//     the last one writes out (in is only read).  Each pass is then one
+//     scatter kernel: a block takes a tile of kTileKeys keys by an atomic
+//     ticket (so every earlier tile's block is already running) and loads
+//     it coalesced; it ranks its keys by digit, stably in input order, with
+//     8 ballots per key (one per digit bit) and per-warp digit counters in
+//     shared memory; it publishes its per-digit counts, reorders the tile
+//     by digit in shared memory, finds the counts of all earlier tiles by a
+//     decoupled look-back, and writes each digit's run contiguously.
 //   * mesh_merge_split_launch merges two sorted blocks of L keys and
-//     writes only the outputs [0, L) or [L, 2L): the same merge-path
-//     kernel, restricted to one half of the diagonals.
+//     writes only the outputs [0, L) or [L, 2L): every thread
+//     binary-searches where its diagonal of kItems outputs crosses the two
+//     blocks, then merges its outputs sequentially.
 //
-// Equal keys are interchangeable (the sort holds keys only), so neither
-// part needs to be stable.  What bounds it: bytes.  The least work reads
-// and writes every key once (16 bytes per key); the tile sort does that
-// once and each merge pass once more, with the merge's reads of the two
-// runs only partly coalesced.
+// What bounds it: bytes.  The least work reads and writes every key once
+// (16 bytes per key).  The sort reads every key once for the histograms,
+// then reads and writes it once per active pass: 16 bytes per key per
+// pass, half of what a radix sort that also carries an int64 index moves,
+// in 9 launches where the merge sort this replaces took 13 (each of its
+// merge passes read the two runs uncoalesced).  Equal keys are
+// interchangeable, but LSD needs every pass stable, so the rank is in
+// input order.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (a plain C ABI, loaded with ctypes).
@@ -34,41 +46,245 @@
 
 namespace {
 
-constexpr int kTile = 2048;          // keys per tile: 16 KB of shared memory
-constexpr int kSortThreads = 1024;
+constexpr int kPasses = 8;           // 8-bit digits of a 64-bit key
+constexpr int kDigits = 256;
+constexpr int kThreads = 256;        // one thread per digit in the scans
+constexpr int kWarps = kThreads / 32;
+constexpr int kKeysPerThread = 16;
+constexpr int kTileKeys = kThreads * kKeysPerThread;  // 32 KB of keys
+constexpr int kHistCopies = 4;       // shared histograms per block, by warp
+constexpr long long kMaxKeys = (1LL << 30) - 1;       // look-back values
+constexpr unsigned kFlagAggregate = 1u << 30;  // the tile's own count
+constexpr unsigned kFlagPrefix = 1u << 31;     // count of tiles [0, tile]
+constexpr unsigned kValueMask = (1u << 30) - 1;
+// state: unsigned words, zeroed by the launch
+constexpr int kCountsAt = 0;                   // [8][256] digit counts
+constexpr int kBasesAt = kPasses * kDigits;    // [8][256] digit starts
+constexpr int kPlanAt = 2 * kPasses * kDigits; // [8] -1, or src | dst << 2
+constexpr int kTicketAt = kPlanAt + kPasses;   // [8] tile tickets
+constexpr int kDoneAt = kTicketAt + kPasses;   // histogram blocks done
+constexpr int kLookbackAt = kDoneAt + 16;      // [8][tiles][256]
+enum Buffer { kIn = 0, kOut = 1, kTmp = 2 };
+
 constexpr int kItems = 8;            // outputs per merge thread
 constexpr int kMergeThreads = 256;
 constexpr long long kSpan = (long long)kMergeThreads * kItems;
-constexpr long long kMaxKey = 0x7fffffffffffffffLL;
 
-__global__ void __launch_bounds__(kSortThreads)
-tile_sort_kernel(const long long* __restrict__ in, long long* __restrict__ out,
-                 long long n) {
-  __shared__ long long s[kTile];
-  const long long base = (long long)blockIdx.x * kTile;
-  for (int t = threadIdx.x; t < kTile; t += kSortThreads) {
-    const long long i = base + t;
-    s[t] = i < n ? in[i] : kMaxKey;
+__device__ __forceinline__ unsigned digit(long long key, int pass) {
+  const unsigned d = (unsigned)((unsigned long long)key >> (8 * pass)) & 0xffu;
+  return pass == kPasses - 1 ? d ^ 0x80u : d;  // the sign bit
+}
+
+// Exclusive scan of x over the block's kThreads threads; *sum receives the
+// block's total.
+__device__ unsigned block_exclusive_scan(unsigned x, unsigned* sum) {
+  __shared__ unsigned warp_sum[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned v = x;
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned y = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += y;
+  }
+  if (lane == 31) warp_sum[warp] = v;
+  __syncthreads();
+  unsigned before = 0, total = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    const unsigned s = warp_sum[w];
+    if (w < warp) before += s;
+    total += s;
+  }
+  __syncthreads();  // warp_sum is reused by the next call
+  *sum = total;
+  return before + v - x;
+}
+
+// The lanes of the warp whose key is valid and has digit d (8 ballots, one
+// per bit of the digit).
+__device__ __forceinline__ unsigned match_digit(unsigned d, bool ok) {
+  unsigned peers = __ballot_sync(0xffffffffu, ok);
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    const unsigned bits = __ballot_sync(0xffffffffu, (d >> b) & 1u);
+    peers &= ((d >> b) & 1u) ? bits : ~bits;
+  }
+  return peers;
+}
+
+// Adds one key to the block's 8 histograms.
+__device__ __forceinline__ void count_key(unsigned (*h)[kDigits],
+                                          long long key) {
+#pragma unroll
+  for (int p = 0; p < kPasses; ++p) atomicAdd(&h[p][digit(key, p)], 1u);
+}
+
+// All 8 digit histograms in one read of the keys (16-byte loads where in is
+// 16-byte aligned); the last block to finish scans them and plans the
+// passes.
+__global__ void __launch_bounds__(kThreads)
+histogram_kernel(const long long* __restrict__ in, long long n,
+                 unsigned* __restrict__ state) {
+  __shared__ unsigned hs[kHistCopies][kPasses][kDigits];
+  __shared__ int active[kPasses];
+  __shared__ bool last;
+  for (int i = threadIdx.x; i < kHistCopies * kPasses * kDigits; i += kThreads) {
+    (&hs[0][0][0])[i] = 0;
   }
   __syncthreads();
-  for (int k = 2; k <= kTile; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int t = threadIdx.x; t < kTile; t += kSortThreads) {
-        const int x = t ^ j;
-        if (x > t) {
-          const long long a = s[t], b = s[x];
-          if ((a > b) == ((t & k) == 0)) {
-            s[t] = b;
-            s[x] = a;
-          }
-        }
-      }
-      __syncthreads();
+  unsigned (*h)[kDigits] = hs[(threadIdx.x >> 5) % kHistCopies];
+  const bool vec = ((uintptr_t)in & 15) == 0;
+  const long long units = vec ? n / 2 : n;  // key pairs, or keys
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long u = (long long)blockIdx.x * kThreads + threadIdx.x; u < units;
+       u += stride) {
+    if (vec) {
+      const longlong2 v = reinterpret_cast<const longlong2*>(in)[u];
+      count_key(h, v.x);
+      count_key(h, v.y);
+    } else {
+      count_key(h, in[u]);
     }
   }
-  for (int t = threadIdx.x; t < kTile; t += kSortThreads) {
-    const long long i = base + t;
-    if (i < n) out[i] = s[t];
+  if (vec && (n & 1) && blockIdx.x == 0 && threadIdx.x == 0) {
+    count_key(h, in[n - 1]);
+  }
+  __syncthreads();
+  unsigned* counts = state + kCountsAt;
+  for (int i = threadIdx.x; i < kPasses * kDigits; i += kThreads) {
+    unsigned c = 0;
+    for (int copy = 0; copy < kHistCopies; ++copy) c += (&hs[copy][0][0])[i];
+    if (c) atomicAdd(&counts[i], c);
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&state[kDoneAt], 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int d = threadIdx.x;
+  for (int p = 0; p < kPasses; ++p) {
+    const unsigned c = ((volatile unsigned*)counts)[p * kDigits + d];
+    unsigned total;
+    state[kBasesAt + p * kDigits + d] = block_exclusive_scan(c, &total);
+    const int nonzero = __syncthreads_count(c != 0);
+    if (d == 0) active[p] = nonzero > 1;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int k = 0;
+    for (int p = 0; p < kPasses; ++p) k += active[p];
+    if (k == 0) {  // all keys equal: one pass copies them to out
+      active[0] = 1;
+      k = 1;
+    }
+    int src = kIn, a = 0;
+    for (int p = 0; p < kPasses; ++p) {
+      if (!active[p]) {
+        state[kPlanAt + p] = ~0u;
+        continue;
+      }
+      const int dst = ((k - 1 - a) & 1) ? kTmp : kOut;
+      state[kPlanAt + p] = (unsigned)(src | dst << 2);
+      src = dst;
+      ++a;
+    }
+  }
+}
+
+// One pass: a stable scatter of the keys by digit `pass`.
+__global__ void __launch_bounds__(kThreads, 4)
+scatter_kernel(const long long* in, long long* out, long long* tmp,
+               long long n, int pass, unsigned* __restrict__ state,
+               long long tiles) {
+  __shared__ long long tile_keys[kTileKeys];
+  __shared__ unsigned warp_count[kWarps][kDigits];
+  __shared__ unsigned tile_off[kDigits];
+  __shared__ long long run_base[kDigits];
+  __shared__ long long tile_s;
+  const int code = (int)state[kPlanAt + pass];
+  if (code < 0) return;  // every key has the same digit here
+  const long long* __restrict__ src =
+      (code & 3) == kIn ? in : (code & 3) == kOut ? out : tmp;
+  long long* __restrict__ dst = (code >> 2) == kOut ? out : tmp;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int d_own = threadIdx.x;  // this thread's digit in the scans
+  if (threadIdx.x == 0) {
+    tile_s = atomicAdd(&state[kTicketAt + pass], 1u);
+  }
+  for (int w = 0; w < kWarps; ++w) warp_count[w][d_own] = 0;
+  __syncthreads();
+  const long long tile = tile_s;
+  const long long tile_base = tile * kTileKeys;
+
+  // load warp-striped: key i of lane l of warp w is the tile's key
+  // w * 32 * kKeysPerThread + i * 32 + l, so each load is one contiguous
+  // 256-byte span and (warp, i, lane) is the input order
+  long long keys[kKeysPerThread];
+  unsigned rank[kKeysPerThread];
+  const long long warp_base = tile_base + (long long)warp * 32 * kKeysPerThread;
+#pragma unroll
+  for (int i = 0; i < kKeysPerThread; ++i) {
+    const long long idx = warp_base + i * 32 + lane;
+    keys[i] = idx < n ? src[idx] : 0;
+  }
+  // rank: the key's place among the warp's keys of its digit, input order
+  const unsigned lower = (1u << lane) - 1;
+#pragma unroll
+  for (int i = 0; i < kKeysPerThread; ++i) {
+    const bool ok = warp_base + i * 32 + lane < n;
+    const unsigned d = ok ? digit(keys[i], pass) : kDigits;
+    const unsigned peers = match_digit(d, ok);
+    const int leader = ok ? __ffs((int)peers) - 1 : lane;
+    unsigned old = 0;
+    if (ok && lane == leader) old = atomicAdd(&warp_count[warp][d], __popc(peers));
+    rank[i] = __shfl_sync(0xffffffffu, old, leader) + __popc(peers & lower);
+  }
+  __syncthreads();
+
+  // per digit: the warps' exclusive offsets and the tile's count, published
+  // at once so that later tiles can go on
+  unsigned count = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    const unsigned c = warp_count[w][d_own];
+    warp_count[w][d_own] = count;
+    count += c;
+  }
+  volatile unsigned* lookback =
+      state + kLookbackAt + ((long long)pass * tiles + tile) * kDigits;
+  lookback[d_own] = (tile == 0 ? kFlagPrefix : kFlagAggregate) | count;
+  unsigned tile_keys_n;
+  const unsigned off = block_exclusive_scan(count, &tile_keys_n);
+  tile_off[d_own] = off;
+  __syncthreads();
+
+  // reorder the tile by digit in shared memory
+#pragma unroll
+  for (int i = 0; i < kKeysPerThread; ++i) {
+    if (warp_base + i * 32 + lane < n) {
+      const unsigned d = digit(keys[i], pass);
+      tile_keys[tile_off[d] + warp_count[warp][d] + rank[i]] = keys[i];
+    }
+  }
+  // decoupled look-back: the digit's count in all earlier tiles
+  unsigned earlier = 0;
+  if (tile > 0) {
+    for (long long j = 1;; ++j) {
+      unsigned w;
+      do {
+        w = lookback[-j * kDigits + d_own];
+      } while (w == 0);
+      earlier += w & kValueMask;
+      if (w & kFlagPrefix) break;
+    }
+    lookback[d_own] = kFlagPrefix | (earlier + count);
+  }
+  run_base[d_own] =
+      (long long)state[kBasesAt + pass * kDigits + d_own] + earlier - off;
+  __syncthreads();
+
+  // write each digit's run
+  for (int i = threadIdx.x; i < (int)tile_keys_n; i += kThreads) {
+    const long long key = tile_keys[i];
+    dst[run_base[digit(key, pass)] + i] = key;
   }
 }
 
@@ -97,24 +313,6 @@ __device__ __forceinline__ void merge_items(const long long* __restrict__ a,
   }
 }
 
-// One merge pass: runs of `width` sorted keys, pairwise merged into runs of
-// 2 * width.  width is a multiple of kItems, so no thread's outputs cross
-// two pairs.
-__global__ void __launch_bounds__(kMergeThreads)
-merge_pass_kernel(const long long* __restrict__ src, long long* __restrict__ dst,
-                  long long n, long long width) {
-  const long long first =
-      ((long long)blockIdx.x * kMergeThreads + threadIdx.x) * kItems;
-  if (first >= n) return;
-  const long long base = first / (2 * width) * (2 * width);
-  const long long la = width < n - base ? width : n - base;
-  const long long rest = n - base - la;
-  const long long lb = width < rest ? width : rest;
-  const long long left = n - first;
-  merge_items(src + base, la, src + base + la, lb, first - base,
-              left < kItems ? (int)left : kItems, dst + first);
-}
-
 __global__ void __launch_bounds__(kMergeThreads)
 merge_split_kernel(const long long* __restrict__ a,
                    const long long* __restrict__ b, long long L, int keep_high,
@@ -127,31 +325,46 @@ merge_split_kernel(const long long* __restrict__ a,
               left < kItems ? (int)left : kItems, out + first);
 }
 
+long long sort_tiles(long long n) { return (n + kTileKeys - 1) / kTileKeys; }
+
 }  // namespace
 
-// in, out: int64 [n]; tmp: int64 [n] scratch (unused when n <= 2048).  The
-// sorted keys land in out.  Returns the cudaError_t of the launches.
+// Words of the uint32 state mesh_sort_launch takes for n keys.
+extern "C" long long mesh_sort_state_words(long long n) {
+  return kLookbackAt + kPasses * sort_tiles(n) * kDigits;
+}
+
+// in, out, tmp: int64 [n], 1 <= n < 2^30; state: uint32
+// [mesh_sort_state_words(n)] scratch, zeroed here.  The sorted keys land in
+// out; in is only read.  Returns the cudaError_t of the launches.
 extern "C" int mesh_sort_launch(const long long* in, long long* out,
-                                long long* tmp, long long n, void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
+                                long long* tmp, unsigned* state, long long n,
+                                void* stream) {
+  if (n < 1 || n > kMaxKeys || tmp == nullptr || state == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int passes = 0;
-  for (long long w = kTile; w < n; w <<= 1) ++passes;
-  if (passes > 0 && tmp == nullptr) return (int)cudaErrorInvalidValue;
-  long long* src = (passes & 1) ? tmp : out;
-  long long* dst = (passes & 1) ? out : tmp;
-  const long long tiles = (n + kTile - 1) / kTile;
-  tile_sort_kernel<<<(unsigned)tiles, kSortThreads, 0, s>>>(in, src, n);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = cudaMemsetAsync(
+      state, 0, sizeof(unsigned) * (size_t)mesh_sort_state_words(n), s);
   if (e != cudaSuccess) return (int)e;
-  const unsigned blocks = (unsigned)((n + kSpan - 1) / kSpan);
-  for (long long w = kTile; w < n; w <<= 1) {
-    merge_pass_kernel<<<blocks, kMergeThreads, 0, s>>>(src, dst, n, w);
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e != cudaSuccess) return (int)e;
+  const long long units = (n + 1) / 2;
+  long long blocks = (units + kThreads - 1) / kThreads;
+  if (blocks > 4LL * sms) blocks = 4LL * sms;
+  histogram_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(in, n, state);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long long tiles = sort_tiles(n);
+  for (int pass = 0; pass < kPasses; ++pass) {
+    scatter_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(in, out, tmp, n, pass,
+                                                        state, tiles);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    long long* t = src;
-    src = dst;
-    dst = t;
   }
   return (int)cudaSuccess;
 }

@@ -5,8 +5,8 @@
 // filters the packed rows on the device and compacts the survivors in
 // row-major order by one two-key sort over an int32 flat-position key
 // with an invalid bit at 2^30 (a key that overflows once (S+1) * C
-// reaches 2^30).  Here the same output comes from counts and a prefix sum,
-// with int64 positions:
+// reaches 2^30).  Here the same output comes from one scan, with int64
+// positions:
 //
 //   * a slot is valid when its node is not the sentinel, 1 <= dist <=
 //     max_weight, and its row did not overflow;
@@ -16,13 +16,20 @@
 //     budget)); values past the budget are dropped (the caller then
 //     fetches the full rows).
 //
-// Three launches: (1) one thread per row counts its valid slots and a
-// block scan turns the counts into row offsets inside the block plus the
-// block's sum; (2) one block scans the block sums into int64 block
-// offsets and the total; (3) one thread per row writes its valid values at
-// block offset + row offset.  The scans are warp shuffles and one shared
-// array per block.  What bounds it: reading the [S, C] rows twice and
-// writing the survivors; at C = 4 that is 16 bytes per row each pass.
+// One launch, a single-pass scan.  A block takes a tile of kTileSlots
+// slots by an atomic ticket (so every earlier tile's block is already
+// running): kTileSlots / C whole rows, or, for a row longer than a tile,
+// one piece of it.  It loads the tile's slots with 16-byte loads where
+// they are aligned, flags the valid ones, scans the flags across the block
+// (popcounts, warp shuffles and one warp-sum array), writes each row's
+// count from the scan at the row's end, publishes its own count and finds
+// the count of all earlier tiles by a decoupled look-back, stages its
+// survivors compacted in shared memory and writes them as one contiguous
+// range, cut at the budget.  The last piece of a long row takes the row's
+// count from the look-back prefix before the row's first piece, and the
+// last tile writes the total.  What bounds it: bytes, the [S, C] rows and
+// the flags read once, the counts and survivors written once; here the
+// rows are read once and the survivors are written coalesced.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (a plain C ABI, loaded with ctypes).
@@ -36,6 +43,28 @@ constexpr int kDistBits = 7;
 constexpr int kDistCap = (1 << kDistBits) - 1;
 constexpr int kBlock = 256;
 constexpr int kWarps = kBlock / 32;
+constexpr int kSlotsPerThread = 16;
+constexpr int kTileSlots = kBlock * kSlotsPerThread;  // 16 KB of rows
+constexpr unsigned long long kFlagAggregate = 1ull << 62;  // the tile's count
+constexpr unsigned long long kFlagPrefix = 1ull << 63;     // tiles [0, tile]
+constexpr unsigned long long kValueMask = (1ull << 62) - 1;
+
+// A tile is tile_rows whole rows (C <= kTileSlots), or one of a row's
+// chunks pieces (C > kTileSlots).
+struct Tiling {
+  long long tiles;
+  int tile_rows;
+  int chunks;
+};
+
+Tiling tiling(int n_rows, int C) {
+  if (C <= kTileSlots) {
+    const int r = kTileSlots / C;
+    return {(n_rows + (long long)r - 1) / r, r, 1};
+  }
+  const int chunks = (C + kTileSlots - 1) / kTileSlots;
+  return {(long long)n_rows * chunks, 1, chunks};
+}
 
 __device__ __forceinline__ bool valid_slot(int key, int sentinel,
                                            int max_weight) {
@@ -44,114 +73,185 @@ __device__ __forceinline__ bool valid_slot(int key, int sentinel,
 }
 
 // Exclusive scan of x over the block; *total receives the block's sum.
-template <typename T>
-__device__ T block_exclusive_scan(T x, T* total) {
-  __shared__ T warp_sum[kWarps];
+__device__ int block_exclusive_scan(int x, int* total) {
+  __shared__ int warp_sum[kWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  T v = x;
+  int v = x;
   for (int o = 1; o < 32; o <<= 1) {
-    const T y = __shfl_up_sync(0xffffffffu, v, o);
+    const int y = __shfl_up_sync(0xffffffffu, v, o);
     if (lane >= o) v += y;
   }
   if (lane == 31) warp_sum[warp] = v;
   __syncthreads();
-  if (warp == 0) {
-    T w = lane < kWarps ? warp_sum[lane] : T(0);
-    for (int o = 1; o < kWarps; o <<= 1) {
-      const T y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
+  int before = 0, sum = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    const int s = warp_sum[w];
+    if (w < warp) before += s;
+    sum += s;
+  }
+  *total = sum;
+  return before + v - x;
+}
+
+__global__ void __launch_bounds__(kBlock)
+compact_kernel(const int* __restrict__ rows, const uint8_t* __restrict__ over,
+               int n_rows, int C, int sentinel, int max_weight,
+               long long budget, int* __restrict__ out, void* counts,
+               int counts_int8, unsigned long long* __restrict__ state,
+               long long* __restrict__ total, Tiling t) {
+  __shared__ int survivors[kTileSlots];
+  __shared__ int row_end[kTileSlots];  // inclusive count at each row's end
+  __shared__ uint8_t over_s[kTileSlots];
+  __shared__ long long tile_s, before_s;
+  if (threadIdx.x == 0) tile_s = (long long)atomicAdd(&state[0], 1ull);
+  __syncthreads();
+  const long long tile = tile_s;
+  const long long row0 = tile / t.chunks * t.tile_rows;
+  const int chunk = (int)(tile % t.chunks);
+  const int n_tile_rows =
+      (int)(n_rows - row0 < t.tile_rows ? n_rows - row0 : t.tile_rows);
+  const int n_slots = t.chunks == 1
+                          ? n_tile_rows * C
+                          : min(kTileSlots, C - chunk * kTileSlots);
+  for (int r = threadIdx.x; r < n_tile_rows; r += kBlock) {
+    over_s[r] = over[row0 + r];
+  }
+
+  // this thread's slots: [local0, local0 + kSlotsPerThread) of the tile
+  const int local0 = threadIdx.x * kSlotsPerThread;
+  const int* src = rows + row0 * C + (long long)chunk * kTileSlots + local0;
+  int key[kSlotsPerThread];
+  if (local0 + kSlotsPerThread <= n_slots && ((uintptr_t)src & 15) == 0) {
+#pragma unroll
+    for (int q = 0; q < kSlotsPerThread / 4; ++q) {
+      const int4 v = reinterpret_cast<const int4*>(src)[q];
+      key[4 * q] = v.x;
+      key[4 * q + 1] = v.y;
+      key[4 * q + 2] = v.z;
+      key[4 * q + 3] = v.w;
     }
-    if (lane < kWarps) warp_sum[lane] = w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kSlotsPerThread; ++j) {
+      key[j] = local0 + j < n_slots ? src[j] : 0;
+    }
+  }
+  __syncthreads();  // over_s
+  const int r0 = t.chunks == 1 ? local0 / C : 0;  // row of slot local0
+  const int col0 = t.chunks == 1 ? local0 - r0 * C : 0;
+  unsigned valid = 0;  // bit j: slot local0 + j survives
+  int r = r0, col = col0;
+#pragma unroll
+  for (int j = 0; j < kSlotsPerThread; ++j) {
+    if (local0 + j < n_slots && !over_s[r] &&
+        valid_slot(key[j], sentinel, max_weight)) {
+      valid |= 1u << j;
+    }
+    if (++col == C) {
+      col = 0;
+      ++r;
+    }
+  }
+  int tile_count;
+  const int excl = block_exclusive_scan(__popc(valid), &tile_count);
+  int at = excl;
+#pragma unroll
+  for (int j = 0; j < kSlotsPerThread; ++j) {
+    if (valid >> j & 1) survivors[at++] = key[j];
+  }
+  if (t.chunks == 1) {
+    r = r0;
+    col = col0;
+    for (int j = 0; j < kSlotsPerThread && local0 + j < n_slots; ++j) {
+      if (++col == C) {
+        row_end[r] = excl + __popc(valid & ((2u << j) - 1));
+        col = 0;
+        ++r;
+      }
+    }
+  }
+
+  // decoupled look-back: the count of all earlier tiles
+  if (threadIdx.x == 0) {
+    volatile unsigned long long* lookback = state + 1;
+    unsigned long long before = 0;
+    if (tile == 0) {
+      lookback[0] = kFlagPrefix | (unsigned long long)tile_count;
+    } else {
+      lookback[tile] = kFlagAggregate | (unsigned long long)tile_count;
+      for (long long j = tile - 1;; --j) {
+        unsigned long long w;
+        do {
+          w = lookback[j];
+        } while (w == 0);
+        before += w & kValueMask;
+        if (w & kFlagPrefix) break;
+      }
+      lookback[tile] = kFlagPrefix | (before + tile_count);
+    }
+    if (t.chunks > 1 && chunk == t.chunks - 1) {
+      // the last piece of a long row: its end minus the prefix before the
+      // row's first piece
+      const long long first = tile - chunk;
+      unsigned long long start = 0;
+      if (first > 0) {
+        unsigned long long w;
+        do {
+          w = lookback[first - 1];
+        } while (!(w & kFlagPrefix));
+        start = w & kValueMask;
+      }
+      static_cast<int*>(counts)[row0] = (int)(before + tile_count - start);
+    }
+    if (tile == t.tiles - 1) *total = (long long)(before + tile_count);
+    before_s = (long long)before;
   }
   __syncthreads();
-  const T excl = v - x + (warp > 0 ? warp_sum[warp - 1] : T(0));
-  *total = warp_sum[kWarps - 1];
-  __syncthreads();  // warp_sum is reused by the next call
-  return excl;
-}
-
-__global__ void __launch_bounds__(kBlock)
-count_kernel(const int* __restrict__ rows, const uint8_t* __restrict__ over,
-             int n_rows, int C, int sentinel, int max_weight,
-             void* counts, int counts_int8, int* __restrict__ row_off,
-             long long* __restrict__ block_sum) {
-  const int r = blockIdx.x * kBlock + threadIdx.x;
-  int c = 0;
-  if (r < n_rows && !over[r]) {
-    const int* row = rows + (size_t)r * C;
-    for (int t = 0; t < C; ++t) c += valid_slot(row[t], sentinel, max_weight);
-  }
-  int sum;
-  const int excl = block_exclusive_scan<int>(c, &sum);
-  if (r < n_rows) {
-    row_off[r] = excl;
-    if (counts_int8) {
-      static_cast<int8_t*>(counts)[r] = (int8_t)c;
-    } else {
-      static_cast<int*>(counts)[r] = c;
+  if (t.chunks == 1) {
+    for (int i = threadIdx.x; i < n_tile_rows; i += kBlock) {
+      const int c = row_end[i] - (i > 0 ? row_end[i - 1] : 0);
+      if (counts_int8) {
+        static_cast<int8_t*>(counts)[row0 + i] = (int8_t)c;
+      } else {
+        static_cast<int*>(counts)[row0 + i] = c;
+      }
     }
   }
-  if (threadIdx.x == 0) block_sum[blockIdx.x] = sum;
-}
-
-// One block: block_sum becomes the exclusive int64 block offsets.
-__global__ void __launch_bounds__(kBlock)
-scan_blocks_kernel(long long* __restrict__ block_sum, int n_blocks,
-                   long long* __restrict__ total) {
-  long long carry = 0;
-  for (int base = 0; base < n_blocks; base += kBlock) {
-    const int b = base + threadIdx.x;
-    const long long x = b < n_blocks ? block_sum[b] : 0;
-    long long sum;
-    const long long excl = block_exclusive_scan<long long>(x, &sum);
-    if (b < n_blocks) block_sum[b] = carry + excl;
-    carry += sum;
-  }
-  if (threadIdx.x == 0) *total = carry;
-}
-
-__global__ void __launch_bounds__(kBlock)
-scatter_kernel(const int* __restrict__ rows, const uint8_t* __restrict__ over,
-               int n_rows, int C, int sentinel, int max_weight,
-               const int* __restrict__ row_off,
-               const long long* __restrict__ block_off, long long budget,
-               int* __restrict__ out) {
-  const int r = blockIdx.x * kBlock + threadIdx.x;
-  if (r >= n_rows || over[r]) return;
-  long long pos = block_off[blockIdx.x] + row_off[r];
-  const int* row = rows + (size_t)r * C;
-  for (int t = 0; t < C && pos < budget; ++t) {
-    const int key = row[t];
-    if (valid_slot(key, sentinel, max_weight)) out[pos++] = key;
+  const long long base = before_s;
+  for (int i = threadIdx.x; i < tile_count && base + i < budget; i += kBlock) {
+    out[base + i] = survivors[i];
   }
 }
 
 }  // namespace
 
+// Words of the uint64 state sssp_compact_launch takes for n_rows rows of C
+// slots: the tile ticket, then one look-back word per tile.
+extern "C" long long sssp_compact_state_words(int n_rows, int C) {
+  if (n_rows < 1 || C < 1) return 0;
+  return 1 + tiling(n_rows, C).tiles;
+}
+
 // rows: int32 [n_rows, C] packed search rows; over: uint8 [n_rows].
-// counts: int8 [n_rows] when counts_int8, else int32 [n_rows].  row_off:
-// int32 [n_rows] scratch; block_sum: int64 [ceil(n_rows / 256)] scratch;
-// total: one int64.  out: int32 [budget].  Returns the cudaError_t of the
-// launches.
+// counts: int8 [n_rows] when counts_int8, else int32 [n_rows].  state:
+// uint64 [sssp_compact_state_words(n_rows, C)] scratch, zeroed here; total:
+// one int64.  out: int32 [budget].  Returns the cudaError_t of the launch.
 extern "C" int sssp_compact_launch(const int* rows, const uint8_t* over,
                                    int n_rows, int C, int sentinel,
                                    int max_weight, long long budget,
                                    int* out, void* counts, int counts_int8,
-                                   int* row_off, long long* block_sum,
+                                   unsigned long long* state,
                                    long long* total, void* stream) {
-  if (n_rows < 1 || C < 1) return (int)cudaErrorInvalidValue;
+  if (n_rows < 1 || C < 1 || (counts_int8 && C > 127)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_blocks = (n_rows + kBlock - 1) / kBlock;
-  count_kernel<<<n_blocks, kBlock, 0, s>>>(rows, over, n_rows, C, sentinel,
-                                           max_weight, counts, counts_int8,
-                                           row_off, block_sum);
-  cudaError_t e = cudaGetLastError();
+  const Tiling t = tiling(n_rows, C);
+  cudaError_t e = cudaMemsetAsync(
+      state, 0, sizeof(unsigned long long) * (size_t)(1 + t.tiles), s);
   if (e != cudaSuccess) return (int)e;
-  scan_blocks_kernel<<<1, kBlock, 0, s>>>(block_sum, n_blocks, total);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  scatter_kernel<<<n_blocks, kBlock, 0, s>>>(rows, over, n_rows, C, sentinel,
-                                             max_weight, row_off, block_sum,
-                                             budget, out);
+  compact_kernel<<<(unsigned)t.tiles, kBlock, 0, s>>>(
+      rows, over, n_rows, C, sentinel, max_weight, budget, out, counts,
+      counts_int8, state, total, t);
   return (int)cudaGetLastError();
 }

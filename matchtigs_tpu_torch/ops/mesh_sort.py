@@ -2,9 +2,9 @@
 acceptance sort (:func:`matchtigs_tpu_torch.parallel.mesh.sharded_accept_key_sort`).
 
 A CUDA tensor launches ``csrc/mesh_sort.cu`` on the current stream without
-synchronizing (``mesh_sort_launch``: a shared-memory bitonic tile sort and
-merge-path passes; ``mesh_merge_split_launch``: one merge-path pass over
-half of the outputs); a CPU tensor runs the plain torch version beside each.
+synchronizing (``mesh_sort_launch``: a key-only LSD radix sort, 8 passes of
+8-bit digits; ``mesh_merge_split_launch``: one merge-path pass over half of
+the outputs); a CPU tensor runs the plain torch version beside each.
 """
 
 from __future__ import annotations
@@ -13,7 +13,8 @@ import torch
 
 from .sssp import KERNEL_LAUNCHES, build_kernels
 
-TILE = 2048  # keys per tile of the kernel's first pass (kTile)
+TILE = 4096  # keys per tile of the sort's scatter passes (kTileKeys)
+MAX_KEYS = (1 << 30) - 1  # the sort's look-back holds counts in 30 bits
 
 
 def _check_keys(*keys: torch.Tensor) -> None:
@@ -38,15 +39,20 @@ def sort_keys(keys: torch.Tensor) -> torch.Tensor:
     if keys.device.type == "cpu":
         return sort_keys_plain(keys)
     n = keys.shape[0]
+    if n > MAX_KEYS:
+        raise ValueError(f"the sort takes at most {MAX_KEYS} keys, got {n}")
     out = torch.empty_like(keys)
     if n == 0:
         return out
-    tmp = torch.empty_like(keys) if n > TILE else None
+    tmp = torch.empty_like(keys)
     lib = build_kernels()["mesh_sort"]
+    state = torch.empty(
+        (lib.mesh_sort_state_words(n),), dtype=torch.int32, device=keys.device
+    )
     with torch.cuda.device(keys.device):
         err = lib.mesh_sort_launch(
-            keys.data_ptr(), out.data_ptr(), None if tmp is None else tmp.data_ptr(),
-            n, _stream(keys.device),
+            keys.data_ptr(), out.data_ptr(), tmp.data_ptr(), state.data_ptr(), n,
+            _stream(keys.device),
         )
     if err != 0:
         raise RuntimeError(f"mesh_sort_launch failed: cudaError {err}")

@@ -142,12 +142,18 @@ def build_kernels() -> dict[str, ctypes.CDLL]:
             vp, vp, ci, ci, vp, ci, ci, ci, vp, vp, vp, vp, vp, ci, ci, ll, ll, vp,
         ]),
         (libs["sssp_compact"].sssp_compact_launch, [
-            vp, vp, ci, ci, ci, ci, ll, vp, vp, ci, vp, vp, vp, vp,
+            vp, vp, ci, ci, ci, ci, ll, vp, vp, ci, vp, vp, vp,
         ]),
-        (libs["mesh_sort"].mesh_sort_launch, [vp, vp, vp, ll, vp]),
+        (libs["mesh_sort"].mesh_sort_launch, [vp, vp, vp, vp, ll, vp]),
         (libs["mesh_sort"].mesh_merge_split_launch, [vp, vp, ll, ci, vp, vp]),
     ):
         fn.restype = ci
+        fn.argtypes = args
+    for fn, args in (
+        (libs["sssp_compact"].sssp_compact_state_words, [ci, ci]),
+        (libs["mesh_sort"].mesh_sort_state_words, [ll]),
+    ):
+        fn.restype = ll
         fn.argtypes = args
     _kernel_libs = libs
     return libs
@@ -421,18 +427,18 @@ def compact_rows(
     int8 = C <= 127
     vals = torch.empty((budget,), dtype=torch.int32, device=dev)
     counts = torch.empty((S,), dtype=torch.int8 if int8 else torch.int32, device=dev)
-    total = torch.zeros((1,), dtype=torch.int64, device=dev)
     if S == 0:
-        return vals, counts, total
-    row_off = torch.empty((S,), dtype=torch.int32, device=dev)
-    block_sum = torch.empty(((S + 255) // 256,), dtype=torch.int64, device=dev)
+        return vals, counts, torch.zeros((1,), dtype=torch.int64, device=dev)
+    total = torch.empty((1,), dtype=torch.int64, device=dev)
+    state = torch.empty(
+        (lib.sssp_compact_state_words(S, C),), dtype=torch.int64, device=dev
+    )
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sssp_compact_launch(
             rows.data_ptr(), over.data_ptr(), S, C, int(sentinel),
             int(max_weight), int(budget), vals.data_ptr(), counts.data_ptr(),
-            int(int8), row_off.data_ptr(), block_sum.data_ptr(),
-            total.data_ptr(), stream,
+            int(int8), state.data_ptr(), total.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"sssp_compact_launch failed: cudaError {err}")

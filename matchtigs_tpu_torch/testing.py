@@ -1,4 +1,4 @@
-# Copied from matchtigs_tpu/testing.py; adds assert_tigs_spell_kmer_strings for k > 63.
+# Copied from matchtigs_tpu/testing.py; adds assert_tigs_spell_kmer_strings for k > 63, and unitigs_from_kmers runs its lookups in threads (same output).
 """Synthetic data generation and oracle checks.
 
 The reference repo ships no fixtures; its real test oracle is k-mer-set
@@ -12,6 +12,9 @@ make_unitig_store_strings covers arbitrary k for tiny inputs.
 """
 
 from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -217,18 +220,28 @@ def unitigs_from_kmers(kmers: np.ndarray, k: int) -> list[np.ndarray]:
     # Successor/predecessor degrees without materializing [n, 4] tables:
     # accumulate counts and the successor-index sum (the sum IS the unique
     # successor when out_deg == 1).
-    out_deg = np.zeros(n, dtype=np.uint8)
-    in_deg = np.zeros(n, dtype=np.uint8)
-    succ_sum = np.zeros(n, dtype=np.int64)
-    for c in range(4):
-        sv = ((oriented << np.uint64(2)) | np.uint64(c)) & mask
-        idx = find(sv)
-        hit = idx >= 0
-        out_deg += hit
-        succ_sum += np.where(hit, idx, 0)
-        pv = (oriented >> np.uint64(2)) | (np.uint64(c) << np.uint64(2 * (k - 1)))
-        in_deg += find(pv) >= 0
-    rc_idx = find(dna.revcomp_packed_u64(oriented, k))
+    # The nine lookups are independent and numpy's searchsorted releases
+    # the GIL, so they run in threads.
+    def succ(c: int) -> np.ndarray:
+        return find(((oriented << np.uint64(2)) | np.uint64(c)) & mask)
+
+    def pred(c: int) -> np.ndarray:
+        return find((oriented >> np.uint64(2)) | (np.uint64(c) << np.uint64(2 * (k - 1))))
+
+    with ThreadPoolExecutor(max_workers=min(4, os.cpu_count() or 1)) as pool:
+        succs = [pool.submit(succ, c) for c in range(4)]
+        preds = [pool.submit(pred, c) for c in range(4)]
+        rc_job = pool.submit(lambda: find(dna.revcomp_packed_u64(oriented, k)))
+        out_deg = np.zeros(n, dtype=np.uint8)
+        in_deg = np.zeros(n, dtype=np.uint8)
+        succ_sum = np.zeros(n, dtype=np.int64)
+        for c in range(4):
+            idx = succs[c].result()
+            hit = idx >= 0
+            out_deg += hit
+            succ_sum += np.where(hit, idx, 0)
+            in_deg += preds[c].result() >= 0
+        rc_idx = rc_job.result()
     assert np.all(rc_idx >= 0)
 
     # Contracted edge i -> j: both are forced (out_deg[i] == 1,

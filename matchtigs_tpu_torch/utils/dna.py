@@ -1,4 +1,4 @@
-# Copied from matchtigs_tpu/utils/dna.py.
+# Copied from matchtigs_tpu/utils/dna.py; revcomp_packed_u64 uses a byte table (same output).
 """2-bit DNA encoding utilities (numpy, host side).
 
 Array-native analog of the reference's ``compact-genome`` crate
@@ -77,13 +77,20 @@ def pack_kmers_u64(codes: np.ndarray, k: int) -> np.ndarray:
     return out
 
 
+# byte -> its four 2-bit codes complemented and in reverse order
+_REVCOMP_BYTE = np.array(
+    [sum((3 - ((b >> (2 * i)) & 3)) << (2 * (3 - i)) for i in range(4)) for b in range(256)],
+    dtype=np.uint8,
+)
+
+
 def revcomp_packed_u64(vals: np.ndarray, k: int) -> np.ndarray:
-    """Reverse complement of packed k-mers (vectorized, uint64)."""
-    v = ~vals.astype(np.uint64)  # complement: 3-x == ~x in 2-bit space
-    out = np.zeros_like(v)
-    for i in range(k):
-        out |= ((v >> np.uint64(2 * i)) & np.uint64(3)) << np.uint64(2 * (k - 1 - i))
-    return out
+    """Reverse complement of packed k-mers (vectorized, uint64; k <= 32):
+    all 32 codes of each word complemented and reversed by a byte table
+    and a byte swap, then the k codes shifted down."""
+    v = np.ascontiguousarray(vals, dtype=np.uint64)
+    r = _REVCOMP_BYTE[v.reshape(-1).view(np.uint8)].view(np.uint64).byteswap()
+    return (r >> np.uint64(2 * (32 - k))).reshape(v.shape)
 
 
 def canonical_packed_u64(vals: np.ndarray, k: int) -> np.ndarray:

@@ -131,13 +131,15 @@ def test_wide_takes_deg_pad_5(cuda_device):
         _assert_rows_equal(got, want)
 
 
-@pytest.mark.parametrize("budget", [None, 7])
-@pytest.mark.parametrize("capacity", [4, 256])
+# C = 1 overflows nearly every ball at its source; 5000 is more slots than
+# a tile of the kernel holds, so its rows are walked in pieces
+@pytest.mark.parametrize("budget", [None, 7, 0, "all"])
+@pytest.mark.parametrize("capacity", [1, 3, 4, 5, 127, 128, 256, 5000])
 def test_compact_matches_plain(cuda_device, capacity, budget):
     dg, k = _device_graph(CASES[1])
     src = torch.arange(dg.n_nodes + 1, dtype=torch.int32)
     key, over = sssp.pool_sssp(dg.device_buffers(cuda_device), src.to(cuda_device), k - 1, capacity)
-    budget = key.numel() // 4 if budget is None else budget
+    budget = {None: key.numel() // 4, "all": key.numel()}.get(budget, budget)
     before = sssp.KERNEL_LAUNCHES["sssp_compact"]
     vals, counts, total = sssp.compact_rows(key, over, dg.sentinel, k - 1, budget)
     torch.cuda.synchronize()
@@ -145,8 +147,49 @@ def test_compact_matches_plain(cuda_device, capacity, budget):
     pvals, pcounts, ptotal = sssp.compact_rows_plain(
         key.cpu(), over.cpu(), dg.sentinel, k - 1, budget
     )
-    assert int(total) == int(ptotal) > 0
+    assert int(total) == int(ptotal)
+    assert int(ptotal) > 0 or capacity == 1
     assert counts.dtype == pcounts.dtype and torch.equal(counts.cpu(), pcounts)
+    n = min(int(ptotal), budget)
+    assert torch.equal(vals[:n].cpu(), pvals[:n])
+
+
+def _random_rows(S, C, over_frac, seed=0):
+    """Packed rows of random nodes (a fifth of them the sentinel 1000) and
+    distances in [0, 127], and overflow flags."""
+    rng = np.random.default_rng(seed + S * 7 + C)
+    node = np.where(rng.random((S, C)) < 0.2, 1000, rng.integers(0, 1000, (S, C)))
+    dist = rng.integers(0, 128, (S, C))
+    rows = (node << sssp.DIST_BITS | dist).astype(np.int32)
+    over = (rng.random(S) < over_frac).astype(np.uint8)
+    return torch.from_numpy(rows), torch.from_numpy(over)
+
+
+# (S, C, share of rows overflowed): one row; S not a multiple of the rows
+# per tile (4096 / C); C = 3 and 5 (rows not 16-byte aligned); C around the
+# int8 counts; rows longer than a tile; every row overflowed
+RANDOM_ROWS = {
+    "S1-C4": (1, 4, 0.0), "S1-C5000": (1, 5000, 0.0), "ragged-C4": (3 * 1024 + 7, 4, 0.1),
+    "C1": (10_000, 1, 0.1), "C3": (5000, 3, 0.1), "C5": (2000, 5, 0.1),
+    "C127": (300, 127, 0.1), "C128": (300, 128, 0.1), "C4097": (5, 4097, 0.2),
+    "C20000": (7, 20000, 0.2), "all-overflowed": (2000, 4, 1.0),
+}
+
+
+@pytest.mark.parametrize("budget", ["zero", "half", "above"])
+@pytest.mark.parametrize("name", list(RANDOM_ROWS))
+def test_compact_matches_plain_on_random_rows(cuda_device, name, budget):
+    S, C, over_frac = RANDOM_ROWS[name]
+    rows, over = _random_rows(S, C, over_frac)
+    _, _, want_total = sssp.compact_rows_plain(rows, over, 1000, 30, 0)
+    budget = {"zero": 0, "half": int(want_total) // 2, "above": int(want_total) + 5}[budget]
+    pvals, pcounts, ptotal = sssp.compact_rows_plain(rows, over, 1000, 30, budget)
+    vals, counts, total = sssp.compact_rows(rows.to(cuda_device), over.to(cuda_device),
+                                            1000, 30, budget)
+    torch.cuda.synchronize()
+    assert int(total) == int(ptotal)
+    assert counts.dtype == pcounts.dtype == (torch.int8 if C <= 127 else torch.int32)
+    assert torch.equal(counts.cpu(), pcounts)
     n = min(int(ptotal), budget)
     assert torch.equal(vals[:n].cpu(), pvals[:n])
 
@@ -210,8 +253,12 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
         sssp.wide_sssp(adj, src.to(cuda_device), 127, 5)  # packed adjacency
 
 
-# the tile boundary (2048 keys), several merge passes, and 2^20 + 3 keys
-SORT_SIZES = [1, 2, 2047, 2048, 2049, 100_000, (1 << 20) + 3]
+# sizes around 2048 and around the radix sort's tile (mesh_sort.TILE), many
+# look-back tiles, and 2^20 + 3 keys
+SORT_SIZES = [1, 2, 2047, 2048, 2049, mesh_sort.TILE - 1, mesh_sort.TILE,
+              mesh_sort.TILE + 1, 100_000, 64 * mesh_sort.TILE + 1, (1 << 20) + 3]
+SORT_KINDS = ["random", "duplicates", "padding", "top-byte", "constant-middle",
+              "all-padding", "all-equal", "negative"]
 
 
 def _keys(n, kind, seed=0):
@@ -220,12 +267,23 @@ def _keys(n, kind, seed=0):
         return rng.integers(-(1 << 62), 1 << 62, n, dtype=np.int64)
     if kind == "duplicates":  # the d << 56 clusters of the acceptance keys
         return rng.integers(0, 5, n, dtype=np.int64) << 56
+    if kind == "top-byte":  # only the top digit, the sign bit's, differs
+        return (rng.integers(-128, 128, n, dtype=np.int64) << 56) | 0x123456789ABC
+    if kind == "constant-middle":  # digits 1-6 equal in every key: skipped passes
+        return ((rng.integers(-128, 128, n, dtype=np.int64) << 56)
+                | (0x3C << 24) | rng.integers(0, 256, n, dtype=np.int64))
+    if kind == "all-padding":
+        return np.full(n, mesh.KEY_PAD, dtype=np.int64)
+    if kind == "all-equal":
+        return np.full(n, -12345678901, dtype=np.int64)
+    if kind == "negative":
+        return rng.integers(-(1 << 63), 0, n, dtype=np.int64)
     keys = np.full(n, mesh.KEY_PAD, dtype=np.int64)  # mostly padding
     keys[: n // 3] = rng.integers(0, 1 << 62, n // 3, dtype=np.int64)
     return keys
 
 
-@pytest.mark.parametrize("kind", ["random", "duplicates", "padding"])
+@pytest.mark.parametrize("kind", SORT_KINDS)
 @pytest.mark.parametrize("n", SORT_SIZES)
 def test_mesh_sort_matches_plain(cuda_device, n, kind):
     keys = torch.from_numpy(_keys(n, kind))
@@ -236,6 +294,27 @@ def test_mesh_sort_matches_plain(cuda_device, n, kind):
     assert sssp.KERNEL_LAUNCHES["mesh_sort"] == before + 1
     assert torch.equal(got.cpu(), mesh_sort.sort_keys_plain(keys))
     assert torch.equal(dev_keys.cpu(), keys)  # the input is left as it was
+
+
+def test_mesh_sort_repeats_exactly(cuda_device):
+    """The same 1 M keys sorted 20 times give one result: a race in the
+    look-back would show as a run that differs."""
+    keys = torch.from_numpy(_keys(1 << 20, "random")).to(cuda_device)
+    want = mesh_sort.sort_keys_plain(keys.cpu())
+    runs = [mesh_sort.sort_keys(keys) for _ in range(20)]
+    torch.cuda.synchronize()
+    for got in runs:
+        assert torch.equal(got.cpu(), want)
+
+
+def test_mesh_sort_takes_an_unaligned_view(cuda_device):
+    """A view one key into its storage: the histogram's 16-byte loads do
+    not apply."""
+    base = torch.from_numpy(_keys(100_001, "random")).to(cuda_device)
+    keys = base[1:]
+    assert keys.data_ptr() % 16 == 8
+    got = mesh_sort.sort_keys(keys)
+    assert torch.equal(got.cpu(), mesh_sort.sort_keys_plain(keys.cpu()))
 
 
 @pytest.mark.parametrize("keep_high", [False, True])

@@ -107,8 +107,11 @@ def test_deg_pad_5_matches_jax(capacity, schedule, max_weight):
     assert over[0] == (capacity < 8)  # node 0's ball has 8 nodes at bound 4+
 
 
+# C = 2, 5, 127 and 128 are the compaction kernel's boundary shapes (rows
+# not 16-byte aligned, the int8/int32 counts); C = 1 overflows every ball
+# with a neighbour, so it has no candidates to compare
 @pytest.mark.parametrize("budget", [None, 7])
-@pytest.mark.parametrize("capacity", [4, 16])
+@pytest.mark.parametrize("capacity", [2, 4, 5, 16, 127, 128])
 def test_compact_candidates_match_jax(capacity, budget):
     """The compact fetch gives the full fetch's candidate columns and JAX's
     compact dispatch's, with a budget that fits and one that overruns
@@ -145,7 +148,7 @@ def test_compact_rows_plain_counts_and_order():
     int32), their int64 total, and the valid values row by row."""
     _, jdg, tdg, k = _graphs(dict(genome_length=3000, k=9, seed=0))
     sources = np.arange(jdg.n_nodes + 1, dtype=np.int32)
-    for capacity in (4, 128):
+    for capacity in (2, 4, 5, 127, 128):
         rows, _, over = tsssp.batched_bounded_sssp(
             tdg, sources, k - 1, capacity, return_packed=True, device="cpu"
         )
