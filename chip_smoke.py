@@ -7,8 +7,10 @@ in the checkout and holding each against its plain PyTorch version:
 
 - ``kernel_vs_plain`` / ``kernel_main_shape``: the register kernel
   (``csrc/sssp_pool.cu``) on two graphs and on all flagship device sources;
-- ``wide_vs_plain``: the wide kernel (``csrc/sssp_wide.cu``), both
-  schedules, packed and unpacked, on the sources that overflow C=4;
+- ``wide_vs_plain``: the wide kernel (``csrc/sssp_wide.cu``, a warp tier
+  and a spill tier), both schedules, packed and unpacked, on the sources
+  that overflow C=4; ``wide_ball_census``: those sources' ball sizes and
+  distance levels, from the C=1024 rows;
 - ``compact_vs_full``: the compaction kernel (``csrc/sssp_compact.cu``) on
   the C=4 rows of all device sources, at C=1, 128 and 5000 (rows longer
   than its tile) with budgets below the total (``compact_case``), and the
@@ -38,9 +40,13 @@ of ``compact_vs_full``, ``mesh_sort`` and ``mesh_merge_split`` from
 ``mesh_two_process``.  Each kernel's ``bound_ms`` is the larger of its
 bytes (inputs read once, outputs written once) over the card's memory
 rate and its operations over the card's peak, from this run's inputs.
-Beside the event times of ``sssp_compact``, ``mesh_sort`` and their library
-calls, ``*_device_ms`` is the device time of the call's kernels alone
-(``torch.profiler``).
+Beside the event times of ``sssp_pool`` at the main shape, ``sssp_wide``
+(packed, C=16, 256 and 1024 in the pool schedule, C=256 in the batch
+schedule), ``sssp_compact``, ``mesh_sort`` and their library calls,
+``*_device_ms`` is the device time of the call's kernels alone
+(``torch.profiler``, with a per-kernel breakdown: the wide kernel's two
+tiers show as two kernels) and ``host_enqueue_ms`` the host's time to
+enqueue one call.
 
     python3 chip_smoke.py [--genome-length N]
 
@@ -76,6 +82,11 @@ SEED = 0
 CAPACITY = 4  # the GreedytigConfig default
 N_FLAGSHIP_CHECK = 20_000  # flagship sources held against the plain version
 WIDE_CAPACITIES = (16, 256, 1024)
+# (schedule, capacity) of the packed wide cases that are also profiled
+WIDE_PROFILED = (("pool", 16), ("pool", 256), ("pool", 1024), ("batch", 256))
+# ball-size bins of the wide_ball_census (nodes, inclusive)
+CENSUS_BINS = ((1, 4), (5, 8), (9, 16), (17, 32), (33, 64), (65, 128), (129, 256),
+               (257, 1024))
 WIDE_UNPACKED_BOUND = 30  # the k=31 bound on the unpacked layouts
 DEEP_BOUND, DEEP_CAPACITY = 130, 256  # the k=131 bound on the flagship
 MAX_BALL = 1 << 16  # GreedytigConfig.max_capacity
@@ -192,6 +203,30 @@ def sort_bound(n_in: int, n_out: int) -> tuple[float, str]:
     """Bound of a key sort or merge: int64 keys read once and written once;
     n log2 n comparisons."""
     return roofline(8 * (n_in + n_out), n_in * max(1, math.ceil(math.log2(max(2, n_in)))))
+
+
+def ball_census(rows, over, sentinel: int) -> dict:
+    """Ball sizes and distinct distance levels of the sources behind packed
+    rows sorted by (dist, node): per bin of CENSUS_BINS the sources, their
+    share and their mean levels; balls above the capacity count as
+    ``over_capacity``."""
+    from matchtigs_tpu_torch.ops.sssp import DIST_BITS, DIST_CAP
+
+    done = over == 0
+    node, dist = rows[done] >> DIST_BITS, rows[done] & DIST_CAP
+    valid = node != sentinel
+    size = valid.sum(1)
+    levels = valid[:, 0].long() + (valid[:, 1:] & (dist[:, 1:] != dist[:, :-1])).sum(1)
+    total = int(over.numel())
+    bins = []
+    for lo, hi in CENSUS_BINS:
+        inside = (size >= lo) & (size <= hi)
+        n = int(inside.sum())
+        bins.append(dict(nodes=f"{lo}-{hi}", sources=n, share=n / max(1, total),
+                         mean_levels=float(levels[inside].float().mean()) if n else None))
+    return dict(sources=total, capacity=rows.shape[1], bins=bins,
+                over_capacity=int((~done).sum()),
+                share_at_most_64=int((size <= 64).sum()) / max(1, total))
 
 
 def key_mismatches(got: torch.Tensor, want: torch.Tensor) -> tuple[int, int]:
@@ -381,8 +416,12 @@ def main(argv=None) -> int:
     r = row_mismatches((key, None, over), want)
     checks.append(r)
     pool_bound = search_bound(adj, src, key, over, dg.deg_pad)
+    pool_device, pool_kernels, _ = device_ms(lambda: sssp.pool_sssp(adj, src, k - 1, CAPACITY))
+    pool_host = host_ms(lambda: sssp.pool_sssp(adj, src, k - 1, CAPACITY))
     phase("kernel_main_shape", bound_ms=pool_bound[0], bound_by=pool_bound[1], seconds=time.monotonic() - t0,
           sources=len(pending), capacity=CAPACITY, kernel_ms=main_ms,
+          kernel_device_ms=pool_device, kernel_device_breakdown_ms=pool_kernels,
+          host_enqueue_ms=pool_host,
           plain_on_gpu_ms=pool_plain_ms,
           sources_per_s=len(pending) / (main_ms / 1e3),
           overflow_frac=float(over.float().mean()), **r)
@@ -413,6 +452,11 @@ def main(argv=None) -> int:
             r = dict(layout=layout, schedule=schedule, max_weight=mw,
                      capacity=cap, sources=len(s), kernel_ms=kernel_ms(run, reps=3),
                      plain_on_gpu_ms=p_ms, **row_mismatches(got, want))
+            if w is None and (schedule, cap) in WIDE_PROFILED:
+                r["kernel_device_ms"], r["kernel_device_breakdown_ms"], _ = device_ms(run)
+                r["host_enqueue_ms"] = host_ms(run, reps=5)
+                if (schedule, cap) == ("pool", 1024):
+                    census_rows, census_over = got[0], got[2]
             phase("wide_vs_plain", **r)
             wide.append(r)
             check(not (r["flag_mismatch"] or r["row_mismatch"]),
@@ -423,6 +467,8 @@ def main(argv=None) -> int:
     wide_bound = search_bound(adj, over_sources, *sssp.wide_sssp(
         adj, over_sources, k - 1, 256)[::2], dg.deg_pad)
     phase("wide_vs_plain_done", seconds=time.monotonic() - t0, cases=len(wide))
+    phase("wide_ball_census", **ball_census(census_rows, census_over, dg.sentinel))
+    del census_rows, census_over
 
     # 5. Compaction: the kernel against its plain version on the C=4 rows of
     # all device sources, then the compact download against the full one

@@ -26,8 +26,10 @@ the stage runs on the unpacked ``(nbr, nw)`` pair with unpacked rows.
 Routing: the pool schedule over the packed adjacency with four slots per
 row and C in ``CAPACITIES`` runs the register kernel ``csrc/sssp_pool.cu``;
 every other capacity, degree, layout and the batch schedule run the wide
-kernel ``csrc/sssp_wide.cu``.  ``csrc/sssp_compact.cu`` compacts a packed
-stage's valid slots on the device for a smaller download.
+kernel ``csrc/sssp_wide.cu`` (a warp per source up to
+``WARP_TIER_CAPACITY`` members, then a second tier for the larger balls).
+``csrc/sssp_compact.cu`` compacts a packed stage's valid slots on the
+device for a smaller download.
 
 Bellman-Ford sets only grow and edge weights are >= 1, so both the
 round-by-round plain version and the kernels' per-source searches meet
@@ -53,6 +55,9 @@ DIST_BITS = 7  # distances < 128 (k <= 127); nodes < 2^24 for packed rows
 DIST_CAP = (1 << DIST_BITS) - 1  # empty-slot distance in packed rows
 CAPACITIES = (4, 8, 16, 32, 64)  # the register kernel's compiled capacities
 MAX_WIDE_CAPACITY = 1 << 20  # the wide kernel's largest capacity
+# members per source of the wide kernel's warp tier; a larger ball at a
+# larger capacity is redone by its second tier (csrc/sssp_wide.cu)
+WARP_TIER_CAPACITY = 64
 SCHEDULES = ("pool", "batch")
 
 # Launches per kernel by its wrapper, for runs that must show the main
@@ -134,12 +139,10 @@ def build_kernels() -> dict[str, ctypes.CDLL]:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     libs = {s.stem: ctypes.CDLL(str(out_dir / f"{s.stem}.so")) for s in sources}
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    pi, pll = ctypes.POINTER(ci), ctypes.POINTER(ll)
     for fn, args in (
         (libs["sssp_pool"].sssp_pool_launch, [vp, ci, vp, ci, ci, ci, vp, vp, vp, vp]),
-        (libs["sssp_wide"].sssp_wide_plan, [ci, ci, pi, pi, pll, pll]),
         (libs["sssp_wide"].sssp_wide_launch, [
-            vp, vp, ci, ci, vp, ci, ci, ci, vp, vp, vp, vp, vp, ci, ci, ll, ll, vp,
+            vp, vp, ci, ci, vp, ci, ci, ci, vp, vp, vp, ci, vp, ll, vp,
         ]),
         (libs["sssp_compact"].sssp_compact_launch, [
             vp, vp, ci, ci, ci, ci, ll, vp, vp, ci, vp, vp, vp,
@@ -150,6 +153,7 @@ def build_kernels() -> dict[str, ctypes.CDLL]:
         fn.restype = ci
         fn.argtypes = args
     for fn, args in (
+        (libs["sssp_wide"].sssp_wide_scratch_words, [ci, ci]),
         (libs["sssp_compact"].sssp_compact_state_words, [ci, ci]),
         (libs["mesh_sort"].mesh_sort_state_words, [ll]),
     ):
@@ -251,8 +255,10 @@ def wide_sssp(
     contract: packed rows and ``dist=None`` with ``pack_out``, else the
     nodes and distances (empty slots ``(sentinel, INF)``).  ``schedule``
     "pool" claims sources from a device cursor, "batch" assigns them to
-    blocks statically (the reference's batch schedule); the rows are the same.  A CUDA
-    tensor launches on the current stream without synchronizing; a CPU
+    warps statically (the reference's batch schedule); the rows are the
+    same.  A CUDA tensor enqueues the kernel's two tiers (a warp per source
+    up to ``WARP_TIER_CAPACITY`` members, then the larger balls) on the
+    current stream without synchronizing, and counts one launch; a CPU
     tensor runs :func:`pool_sssp_plain`."""
     _check_stage_args(adj, nw, sources, max_weight, capacity, pack_out)
     if schedule not in SCHEDULES:
@@ -272,29 +278,17 @@ def wide_sssp(
     over = torch.empty((S,), dtype=torch.uint8, device=dev)
     if S == 0:
         return out_a, out_b, over
-    grid, block = ctypes.c_int(), ctypes.c_int()
-    smem, slab = ctypes.c_longlong(), ctypes.c_longlong()
     with torch.cuda.device(dev):
-        err = lib.sssp_wide_plan(
-            C, S, ctypes.byref(grid), ctypes.byref(block), ctypes.byref(smem),
-            ctypes.byref(slab),
-        )
-        if err != 0:
-            raise RuntimeError(f"sssp_wide_plan failed: cudaError {err}")
-        scratch = (
-            torch.empty((grid.value * slab.value,), dtype=torch.int32, device=dev)
-            if slab.value else None
-        )
-        cursor = (
-            torch.zeros((1,), dtype=torch.int32, device=dev)
-            if schedule == "pool" else None
-        )
+        words = lib.sssp_wide_scratch_words(C, S)
+        if words < 0:
+            raise RuntimeError(f"sssp_wide_scratch_words failed: cudaError {-words}")
+        scratch = torch.empty((words,), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sssp_wide_launch(
             adj.data_ptr(), _ptr(nw), adj.shape[0] - 1, adj.shape[1],
             sources.data_ptr(), S, int(max_weight), C, out_a.data_ptr(),
-            _ptr(out_b), over.data_ptr(), _ptr(cursor), _ptr(scratch),
-            grid.value, block.value, smem.value, slab.value, stream,
+            _ptr(out_b), over.data_ptr(), int(schedule == "pool"),
+            scratch.data_ptr(), words, stream,
         )
     if err != 0:
         raise RuntimeError(f"sssp_wide_launch failed: cudaError {err}")

@@ -1,4 +1,4 @@
-# Copied from matchtigs_tpu/testing.py; adds assert_tigs_spell_kmer_strings for k > 63, and unitigs_from_kmers runs its lookups in threads (same output).
+# Copied from matchtigs_tpu/testing.py; adds assert_tigs_spell_kmer_strings for k > 63 and ball_graph (stage graphs with a ball of a given size), and unitigs_from_kmers runs its lookups in threads (same output).
 """Synthetic data generation and oracle checks.
 
 The reference repo ships no fixtures; its real test oracle is k-mer-set
@@ -398,6 +398,31 @@ def _follow_chains(n: int, nxt: np.ndarray, starts: np.ndarray):
         return np.asarray(order_l, dtype=np.int64), np.asarray(
             offsets_l, dtype=np.int64
         )
+
+
+def ball_graph(ball: int, fanout: int) -> tuple[int, np.ndarray, np.ndarray, int]:
+    """(n_nodes, nbr, nw, max_weight): a padded adjacency with four slots
+    per row whose node 0 has a ball of exactly ``ball`` nodes at the bound
+    ``max_weight``.  Nodes 0..ball-1 form a tree (node i's children
+    fanout*i+1 .. fanout*i+fanout, edge weight 1 + child % 3), and three
+    more nodes hang in a chain off the deepest tree node, at max_weight + 1
+    and beyond.  Every other node's ball is a subtree (or part of the
+    chain), so the sources 0..n_nodes give balls of many sizes."""
+    if not 1 <= fanout <= 3 or ball < 1:
+        raise ValueError("ball >= 1 and 1 <= fanout <= 3")
+    n, deg = ball + 3, 4
+    nbr = np.full((n + 1, deg), n, np.int32)
+    nw = np.full((n + 1, deg), 1 << 20, np.int32)
+    dist = np.zeros(ball, np.int64)
+    for child in range(1, ball):
+        parent, slot = divmod(child - 1, fanout)
+        nbr[parent, slot], nw[parent, slot] = child, 1 + child % 3
+        dist[child] = dist[parent] + 1 + child % 3
+    deepest = int(np.argmax(dist))
+    nbr[deepest, fanout], nw[deepest, fanout] = ball, 1
+    for j in (ball, ball + 1):
+        nbr[j, 0], nw[j, 0] = j + 1, 1
+    return n, nbr, nw, int(dist.max())
 
 
 def make_unitig_store(

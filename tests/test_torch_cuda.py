@@ -131,6 +131,92 @@ def test_wide_takes_deg_pad_5(cuda_device):
         _assert_rows_equal(got, want)
 
 
+W = sssp.WARP_TIER_CAPACITY
+
+
+def _wide_vs_plain(n, nbr, nw, deg, src, max_weight, capacity, layout, schedule, device):
+    """The wide kernel on ``device`` against its plain version on the CPU,
+    over a hand-built adjacency; returns the kernel's overflow flags."""
+    dg = device_graph_from_numpy(n, nbr, nw, deg)
+    if layout == "packed":
+        adj, w = dg.device_buffers("cpu"), None
+    else:
+        adj, w = dg.device_buffers("cpu", adj_packed=False)
+    src = torch.as_tensor(src, dtype=torch.int32)
+    got = sssp.wide_sssp(adj.to(device), src.to(device), max_weight, capacity,
+                         nw=None if w is None else w.to(device), pack_out=w is None,
+                         schedule=schedule)
+    torch.cuda.synchronize()
+    want = sssp.pool_sssp_plain(adj, src, max_weight, capacity, nw=w, pack_out=w is None)
+    _assert_rows_equal(got, want)
+    return got[2].cpu()
+
+
+@pytest.mark.parametrize("layout", ["packed", "unpacked"])
+@pytest.mark.parametrize("schedule", ["pool", "batch"])
+@pytest.mark.parametrize("capacity", [W, W + 1, 256])
+@pytest.mark.parametrize("ball", [W, W + 1, 2 * W])
+def test_wide_ball_at_the_warp_tier_edge(cuda_device, ball, capacity, schedule, layout):
+    """Node 0's ball has exactly W, W + 1 or 2W nodes: it stays in the warp
+    tier, just spills to the second tier, or spills far; the other sources
+    give the subtrees' smaller balls."""
+    n, nbr, nw, mw = testing.ball_graph(ball, 2)
+    over = _wide_vs_plain(n, nbr, nw, 4, np.arange(n + 1), mw, capacity, layout,
+                          schedule, cuda_device)
+    assert int(over[0]) == (ball > capacity)
+
+
+@pytest.mark.parametrize("schedule", ["pool", "batch"])
+@pytest.mark.parametrize("capacity", [2 * W, 256, 1024, 2048, 20000])
+def test_wide_every_source_spills(cuda_device, capacity, schedule):
+    """Every source has a 2W-node ball, so the warp tier hands all of them
+    to the second tier: one warp per source (C <= 1024), a block in shared
+    memory (2048) or in the global slab (20000)."""
+    n, nbr, nw, mw = testing.ball_graph(2 * W, 3)
+    src = np.zeros(3000 if capacity < 20000 else 300, np.int64)
+    for layout in ("packed", "unpacked"):
+        over = _wide_vs_plain(n, nbr, nw, 4, src, mw, capacity, layout, schedule,
+                              cuda_device)
+        assert not over.any()
+
+
+@pytest.mark.parametrize("capacity", [4, 5, 16, 256])
+def test_wide_on_five_node_chains(cuda_device, capacity):
+    """The flagship's typical overflow ball: a chain of five nodes (five
+    levels), 20,000 disjoint chains, every node a source."""
+    chains, length = 20_000, 5
+    n = chains * length
+    nbr = np.full((n + 1, 4), n, np.int32)
+    nw = np.full((n + 1, 4), 1 << 20, np.int32)
+    node = np.arange(n).reshape(chains, length)
+    nbr[node[:, :-1], 0] = node[:, 1:]
+    nw[node[:, :-1], 0] = 1 + node[:, 1:] % 3
+    for schedule in sssp.SCHEDULES:
+        over = _wide_vs_plain(n, nbr, nw, 4, np.arange(n + 1), 12, capacity, "packed",
+                              schedule, cuda_device)
+        assert int(over[node[:, 0]].sum()) == (chains if capacity < length else 0)
+
+
+def test_wide_repeats_exactly(cuda_device):
+    """The same 200k sources at C=256 searched 20 times give one result:
+    a race between the tiers or in the atomics would show as a run that
+    differs."""
+    dg, k = _device_graph(CASES[0])
+    rng = np.random.default_rng(5)
+    src = torch.from_numpy(rng.integers(0, dg.n_nodes + 1, 200_000).astype(np.int32))
+    adj = dg.device_buffers(cuda_device)
+    src_d = src.to(cuda_device)
+    want = sssp.pool_sssp_plain(adj, src_d, k - 1, 256)
+    want = tuple(None if t is None else t.cpu() for t in want)
+    for schedule in sssp.SCHEDULES:
+        runs = [sssp.wide_sssp(adj, src_d, k - 1, 256, schedule=schedule)
+                for _ in range(10)]
+        torch.cuda.synchronize()
+        for got in runs:
+            _assert_rows_equal(got, want)
+            assert torch.equal(got[0].cpu(), runs[0][0].cpu())
+
+
 # C = 1 overflows nearly every ball at its source; 5000 is more slots than
 # a tile of the kernel holds, so its rows are walked in pieces
 @pytest.mark.parametrize("budget", [None, 7, 0, "all"])

@@ -18,6 +18,7 @@ from matchtigs_tpu.ops import sssp as jsssp
 from matchtigs_tpu.ops.device_graph import DeviceGraph as JDeviceGraph
 from matchtigs_tpu.ops.device_graph import build_device_graph
 from matchtigs_tpu.ops.matching import unbalanced_nodes
+from matchtigs_tpu_torch import testing as testing_torch
 from matchtigs_tpu_torch.interop import device_graph_from_numpy
 from matchtigs_tpu_torch.ops import sssp as tsssp
 
@@ -105,6 +106,29 @@ def test_deg_pad_5_matches_jax(capacity, schedule, max_weight):
     sources = np.arange(jdg.n_nodes + 1, dtype=np.int32)  # sentinel included
     over = _assert_stage_equal(jdg, tdg, sources, max_weight, capacity, schedule)
     assert over[0] == (capacity < 8)  # node 0's ball has 8 nodes at bound 4+
+
+
+W = tsssp.WARP_TIER_CAPACITY
+
+
+@pytest.mark.parametrize("layout", ["packed", "unpacked"])
+@pytest.mark.parametrize("schedule", ["pool", "batch"])
+@pytest.mark.parametrize("capacity", [W, W + 1, 256])
+@pytest.mark.parametrize("ball", [W, W + 1, 2 * W])
+def test_ball_at_the_warp_tier_edge_matches_jax(monkeypatch, ball, capacity, schedule,
+                                                 layout):
+    """Node 0's ball has exactly W, W + 1 or 2W nodes (the wide kernel's
+    warp tier holds W members, so these balls stay in it, just spill, or
+    spill far), at capacities on both sides of W; the other sources give
+    the subtrees' smaller balls."""
+    n, nbr, nw, max_weight = testing_torch.ball_graph(ball, 2)
+    jdg = JDeviceGraph(n_nodes=n, nbr=nbr, nw=nw, deg_pad=4)
+    tdg = device_graph_from_numpy(n, nbr, nw, 4)
+    if layout == "unpacked":
+        _unpack_gates(monkeypatch)
+    sources = np.arange(n + 1, dtype=np.int32)  # sentinel included
+    over = _assert_stage_equal(jdg, tdg, sources, max_weight, capacity, schedule)
+    assert over[0] == (ball > capacity)
 
 
 # C = 2, 5, 127 and 128 are the compaction kernel's boundary shapes (rows
