@@ -6,7 +6,11 @@ mutations, repeats, k=31), after building every kernel from the sources
 in the checkout and holding each against its plain PyTorch version:
 
 - ``kernel_vs_plain`` / ``kernel_main_shape``: the register kernel
-  (``csrc/sssp_pool.cu``) on two graphs and on all flagship device sources;
+  (``csrc/sssp_pool.cu``) on two graphs and on all flagship device sources
+  (one device operation, checked; registers and spilled bytes per
+  capacity); ``pool_capacity_case``: ``pool_sssp`` at C=16 (the register
+  kernel) and 64 (the wide kernel's warp tier) on the sources that
+  overflow C=4;
 - ``wide_vs_plain``: the wide kernel (``csrc/sssp_wide.cu``, a warp tier
   and a spill tier), both schedules, packed and unpacked, on the sources
   that overflow C=4; ``wide_ball_census``: those sources' ball sizes and
@@ -16,7 +20,8 @@ in the checkout and holding each against its plain PyTorch version:
   than its tile) with budgets below the total (``compact_case``), and the
   compact candidate download against the full one;
 - ``cli_device``: the default CLI (one register-kernel launch);
-- ``greedy_device_vs_host``: library runs of both engines;
+- ``greedy_device_vs_host``: library runs of both engines (the in-path
+  stage kernel, one cold call after the upload, beside the warm loop's);
 - ``cli_ladder``: the CLI with ``--sssp-overflow-mode ladder`` (the wide
   kernel serves the stages at C >= 256);
 - ``cli_k131``: the CLI at k=131 on a string-generated input (unpacked
@@ -40,9 +45,10 @@ of ``compact_vs_full``, ``mesh_sort`` and ``mesh_merge_split`` from
 ``mesh_two_process``.  Each kernel's ``bound_ms`` is the larger of its
 bytes (inputs read once, outputs written once) over the card's memory
 rate and its operations over the card's peak, from this run's inputs.
-Beside the event times of ``sssp_pool`` at the main shape, ``sssp_wide``
-(packed, C=16, 256 and 1024 in the pool schedule, C=256 in the batch
-schedule), ``sssp_compact``, ``mesh_sort`` and their library calls,
+Beside the event times of ``sssp_pool`` at the main shape and at C=16 and
+64, ``sssp_wide`` (packed, C=16, 256 and 1024 in the pool schedule, C=256
+in the batch schedule), ``sssp_compact``, ``mesh_sort``,
+``mesh_merge_split`` and their library calls,
 ``*_device_ms`` is the device time of the call's kernels alone
 (``torch.profiler``, with a per-kernel breakdown: the wide kernel's two
 tiers show as two kernels) and ``host_enqueue_ms`` the host's time to
@@ -81,6 +87,7 @@ MUTATION_RATE = 0.01
 SEED = 0
 CAPACITY = 4  # the GreedytigConfig default
 N_FLAGSHIP_CHECK = 20_000  # flagship sources held against the plain version
+POOL_CAPACITY_CASES = (16, 64)  # pool_sssp capacities timed on the C=4 overflow
 WIDE_CAPACITIES = (16, 256, 1024)
 # (schedule, capacity) of the packed wide cases that are also profiled
 WIDE_PROFILED = (("pool", 16), ("pool", 256), ("pool", 1024), ("batch", 256))
@@ -133,21 +140,30 @@ def device_ms(fn, reps: int = 5) -> tuple[float, dict, list]:
     kernels and memsets it runs on the card.  Each of ``reps`` calls is
     profiled alone; a session that lost device events (fewer than the most
     any session saw) is left out, and the time is the median of the rest.
-    Unlike ``kernel_ms`` it leaves out the gaps between launches."""
+    Sessions that saw no device event at all are repeated, up to
+    ``4 * reps`` in all; if none saw one, the time is ``busy_events_ms``
+    instead, under the one breakdown key ``BUSY_EVENTS``.  Unlike
+    ``kernel_ms`` it leaves out the gaps between launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     sessions = []
-    for _ in range(reps):
+    for _ in range(4 * reps):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        sessions.append(sorted((e.time_range.start, e.time_range.elapsed_us() / 1e3, e.name)
-                               for e in prof.events() if e.device_type == DeviceType.CUDA))
+        events = sorted((e.time_range.start, e.time_range.elapsed_us() / 1e3, e.name)
+                        for e in prof.events() if e.device_type == DeviceType.CUDA)
+        if events:
+            sessions.append(events)
+        if len(sessions) == reps:
+            break
+    if not sessions:
+        ms = busy_events_ms(fn, reps)
+        return ms, {BUSY_EVENTS: [ms, 1.0]}, []
     full = max(len(x) for x in sessions)
-    check(full > 0, "the profiler saw no device time")
     complete = [x for x in sessions if len(x) == full]
 
     def short(name: str) -> str:
@@ -163,6 +179,29 @@ def device_ms(fn, reps: int = 5) -> tuple[float, dict, list]:
     totals = sorted(sum(ms for _, ms, _ in x) for x in complete)
     order = [sum(x[i][1] for x in complete) / len(complete) for i in range(full)]
     return totals[len(totals) // 2], by_name, order
+
+
+BUSY_EVENTS = "(no profiler events; CUDA events behind a fill)"
+
+
+def busy_events_ms(fn, reps: int = 5) -> float:
+    """Median device milliseconds of one call of ``fn`` from CUDA events
+    recorded right behind a 1 GiB fill on the same stream: the card is still
+    filling while the host enqueues the call, so the events bracket the
+    call's kernels run back to back, not the host's enqueue."""
+    pad = torch.empty(1 << 27, dtype=torch.int64, device=torch.cuda.current_device())
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    fn()
+    times = []
+    for _ in range(reps):
+        pad.fill_(0)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del pad
+    return sorted(times)[len(times) // 2]
 
 
 def host_ms(fn, reps: int = 20) -> float:
@@ -416,20 +455,47 @@ def main(argv=None) -> int:
     r = row_mismatches((key, None, over), want)
     checks.append(r)
     pool_bound = search_bound(adj, src, key, over, dg.deg_pad)
-    pool_device, pool_kernels, _ = device_ms(lambda: sssp.pool_sssp(adj, src, k - 1, CAPACITY))
+    pool_device, pool_kernels, pool_ops = device_ms(
+        lambda: sssp.pool_sssp(adj, src, k - 1, CAPACITY))
     pool_host = host_ms(lambda: sssp.pool_sssp(adj, src, k - 1, CAPACITY))
     phase("kernel_main_shape", bound_ms=pool_bound[0], bound_by=pool_bound[1], seconds=time.monotonic() - t0,
           sources=len(pending), capacity=CAPACITY, kernel_ms=main_ms,
           kernel_device_ms=pool_device, kernel_device_breakdown_ms=pool_kernels,
-          host_enqueue_ms=pool_host,
+          kernel_device_ops=len(pool_ops), host_enqueue_ms=pool_host,
+          registers_and_spilled_bytes={c: sssp.pool_kernel_attributes(c) for c in sssp.CAPACITIES},
           plain_on_gpu_ms=pool_plain_ms,
           sources_per_s=len(pending) / (main_ms / 1e3),
           overflow_frac=float(over.float().mean()), **r)
     check(not (r["flag_mismatch"] or r["row_mismatch"]),
           "kernel disagrees with its plain version at the main shape")
+    check(len(pool_ops) == 1,
+          f"the main-shape call ran {len(pool_ops)} device operations: {pool_kernels}")
     over_sources = src[over.bool()].contiguous()  # the sources overflowing C=4
     rows4, over4 = key, over
     del want
+
+    # pool_sssp's larger capacities on the sources that overflow C=4 (C=64
+    # runs on the wide kernel), against the plain version on the card
+    for cap in POOL_CAPACITY_CASES:
+        t1 = time.monotonic()
+
+        def run_cap():
+            return sssp.pool_sssp(adj, over_sources, k - 1, cap)
+        got = run_cap()
+        want, cap_plain_ms = plain_ms(
+            lambda: sssp.pool_sssp_plain(adj, over_sources, k - 1, cap))
+        r = row_mismatches((got[0], None, got[1]), want)
+        cap_device, cap_kernels, _ = device_ms(run_cap)
+        phase("pool_capacity_case", capacity=cap, sources=len(over_sources),
+              kernel_ms=kernel_ms(run_cap), kernel_device_ms=cap_device,
+              kernel_device_breakdown_ms=cap_kernels, host_enqueue_ms=host_ms(run_cap),
+              plain_on_gpu_ms=cap_plain_ms,
+              bound_ms=search_bound(adj, over_sources, *got, dg.deg_pad)[0],
+              seconds=time.monotonic() - t1, **r)
+        checks.append(r)
+        check(not (r["flag_mismatch"] or r["row_mismatch"]),
+              f"kernel disagrees with its plain version at C={cap}: {r}")
+        del got, want
 
     # 4. Wide kernel vs plain version on the card: the C=4 overflow sources
     t0 = time.monotonic()
@@ -601,6 +667,7 @@ def main(argv=None) -> int:
         phase("greedy_device_vs_host", seconds=time.monotonic() - t0,
               device_s=d_s, host_s=h_s,
               device_stage_s=d_stats.stage_times[0], stage_kernel_s=stage_kernel_s,
+              warm_kernel_ms=main_ms, warm_kernel_device_ms=pool_device,
               stage_sources=d_stats.stage_sources[0],
               stage_sources_per_s=d_stats.stage_sources[0] / stage_kernel_s,
               stage_overflow_frac=d_stats.stage_overflow_frac[0],
@@ -733,8 +800,11 @@ def main(argv=None) -> int:
         bad, err = key_mismatches(mesh_sort.merge_split(ea, eb, True),
                                   mesh_sort.merge_split_plain(ea, eb, True))
         merge_bad, merge_err = merge_bad + bad, max(merge_err, err)
+    merge_device, merge_kernels, _ = device_ms(lambda: mesh_sort.merge_split(a, b, True))
     merge_ms = kernel_ms(lambda: mesh_sort.merge_split(a, b, True))
+    merge_host = host_ms(lambda: mesh_sort.merge_split(a, b, True))
     ab = torch.cat([a, b])
+    merge_library_device, merge_library_kernels, _ = device_ms(lambda: torch.sort(ab))
     merge_library_ms = kernel_ms(lambda: torch.sort(ab))
     _, merge_plain_ms = plain_ms(lambda: mesh_sort.merge_split_plain(a, b, True))
     # L keys in (the split's search finds where the kept half starts; only
@@ -752,7 +822,11 @@ def main(argv=None) -> int:
           block_sort_device_ms=block_sort_device, block_launch_device_ms=block_passes,
           block_sort_library_device_ms=block_library_device,
           merge_split_ms=merge_ms, merge_split_plain_on_gpu_ms=merge_plain_ms,
-          merge_split_library_ms=merge_library_ms, merge_split_bound_ms=merge_bound[0])
+          merge_split_library_ms=merge_library_ms, merge_split_bound_ms=merge_bound[0],
+          merge_split_device_ms=merge_device, merge_split_device_breakdown_ms=merge_kernels,
+          merge_split_host_enqueue_ms=merge_host,
+          merge_split_library_device_ms=merge_library_device,
+          merge_split_library_device_breakdown_ms=merge_library_kernels)
     check(sort_bad == 0 and merge_bad == 0,
           "the mesh sort kernel disagrees with its plain version")
 

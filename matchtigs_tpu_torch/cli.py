@@ -85,6 +85,13 @@ def build_parser() -> argparse.ArgumentParser:
         f"stage, any C >= 1 (default: {GreedytigConfig.initial_capacity})",
     )
     p.add_argument(
+        "--sssp-batch-size",
+        type=int,
+        default=None,
+        help="accepted for compatibility with matchtigs_tpu.cli; the port's "
+        "search has no batch size (ignored)",
+    )
+    p.add_argument(
         "--sssp-overflow-mode",
         choices=("host", "ladder"),
         default="host",
@@ -233,6 +240,9 @@ def main(argv: list[str] | None = None) -> int:
         format="%(asctime)s %(levelname)s [%(name)s] %(message)s",
     )
     logger.info("matchtigs-tpu-torch starting")
+    from .utils.malloc_tuning import tune_malloc
+
+    tune_malloc()
 
     load_start = time.monotonic()
     store, k, gfa_header, links = load_unitigs(
@@ -250,6 +260,32 @@ def main(argv: list[str] | None = None) -> int:
     )
     _log_mem("After load")
 
+    # Pre-fault the working-set arena in one bulk syscall: the candidate
+    # columns and sort keys of the greedy search scale with the candidate
+    # count (~3.3 per edge at k=31, 24 B + 8 B key each, x2 for scratch),
+    # and lazy first-touch faults are slow on oversubscribed virtualized
+    # hosts.  The target is capped by available memory so the prewarm never
+    # thrashes a host the real working set would have fit on.
+    wants_search = any(
+        getattr(opts, f"greedytigs_{out}") is not None
+        for out in ("fa_out", "gfa_out", "duplication_bitvector_out")
+    )
+    if wants_search:
+        from .utils.malloc_tuning import available_memory_bytes, prewarm_heap
+
+        prewarm = min(224 * graph.n_edges, 12 << 30)
+        avail = available_memory_bytes()
+        if avail is not None:
+            prewarm = min(prewarm, avail // 2)
+        if prewarm > (64 << 20) and prewarm_heap(prewarm):
+            logger.info("Prewarmed %.1f GiB of heap arena", prewarm / 2**30)
+
+    if opts.sssp_batch_size is not None:
+        logger.info(
+            "--sssp-batch-size %d is accepted for compatibility and ignored: "
+            "the port's device search has no batch size",
+            opts.sssp_batch_size,
+        )
     if opts.blossom5_command:
         logger.info(
             "--blossom5-command is accepted for compatibility; greedy "

@@ -25,9 +25,12 @@
 //     by digit in shared memory, finds the counts of all earlier tiles by a
 //     decoupled look-back, and writes each digit's run contiguously.
 //   * mesh_merge_split_launch merges two sorted blocks of L keys and
-//     writes only the outputs [0, L) or [L, 2L): every thread
-//     binary-searches where its diagonal of kItems outputs crosses the two
-//     blocks, then merges its outputs sequentially.
+//     writes only the outputs [0, L) or [L, 2L), a tile of kMergeTile
+//     outputs per block: two warps find where the tile's first and last
+//     diagonals cross the two blocks (32 probes per step), the block loads
+//     the tile's ranges of a and b into shared memory and stores its
+//     outputs coalesced, and each thread merges kItems outputs in shared
+//     memory.
 //
 // What bounds it: bytes.  The least work reads and writes every key once
 // (16 bytes per key).  The sort reads every key once for the histograms,
@@ -53,22 +56,26 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kKeysPerThread = 16;
 constexpr int kTileKeys = kThreads * kKeysPerThread;  // 32 KB of keys
 constexpr int kHistCopies = 4;       // shared histograms per block, by warp
-constexpr long long kMaxKeys = (1LL << 30) - 1;       // look-back values
-constexpr unsigned kFlagAggregate = 1u << 30;  // the tile's own count
-constexpr unsigned kFlagPrefix = 1u << 31;     // count of tiles [0, tile]
-constexpr unsigned kValueMask = (1u << 30) - 1;
-// state: unsigned words, zeroed by the launch
+// state: 64-bit words, zeroed by the launch; a look-back word holds two
+// flags and a 62-bit count, so no key count a card can hold overflows it
+using Word = unsigned long long;
+constexpr Word kFlagAggregate = 1ull << 62;  // the tile's own count
+constexpr Word kFlagPrefix = 1ull << 63;     // count of tiles [0, tile]
+constexpr Word kValueMask = kFlagAggregate - 1;
+constexpr Word kSkip = ~0ull;                // plan of a skipped pass
 constexpr int kCountsAt = 0;                   // [8][256] digit counts
 constexpr int kBasesAt = kPasses * kDigits;    // [8][256] digit starts
-constexpr int kPlanAt = 2 * kPasses * kDigits; // [8] -1, or src | dst << 2
+constexpr int kPlanAt = 2 * kPasses * kDigits; // [8] kSkip, or src | dst << 2
 constexpr int kTicketAt = kPlanAt + kPasses;   // [8] tile tickets
 constexpr int kDoneAt = kTicketAt + kPasses;   // histogram blocks done
 constexpr int kLookbackAt = kDoneAt + 16;      // [8][tiles][256]
 enum Buffer { kIn = 0, kOut = 1, kTmp = 2 };
 
-constexpr int kItems = 8;            // outputs per merge thread
+// outputs per merge thread: odd, so that the threads' runs in shared memory
+// start on different banks
+constexpr int kItems = 9;
 constexpr int kMergeThreads = 256;
-constexpr long long kSpan = (long long)kMergeThreads * kItems;
+constexpr int kMergeTile = kMergeThreads * kItems;  // outputs per block
 
 __device__ __forceinline__ unsigned digit(long long key, int pass) {
   const unsigned d = (unsigned)((unsigned long long)key >> (8 * pass)) & 0xffu;
@@ -77,19 +84,20 @@ __device__ __forceinline__ unsigned digit(long long key, int pass) {
 
 // Exclusive scan of x over the block's kThreads threads; *sum receives the
 // block's total.
-__device__ unsigned block_exclusive_scan(unsigned x, unsigned* sum) {
-  __shared__ unsigned warp_sum[kWarps];
+template <typename T>
+__device__ T block_exclusive_scan(T x, T* sum) {
+  __shared__ T warp_sum[kWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  unsigned v = x;
+  T v = x;
   for (int o = 1; o < 32; o <<= 1) {
-    const unsigned y = __shfl_up_sync(0xffffffffu, v, o);
+    const T y = __shfl_up_sync(0xffffffffu, v, o);
     if (lane >= o) v += y;
   }
   if (lane == 31) warp_sum[warp] = v;
   __syncthreads();
-  unsigned before = 0, total = 0;
+  T before = 0, total = 0;
   for (int w = 0; w < kWarps; ++w) {
-    const unsigned s = warp_sum[w];
+    const T s = warp_sum[w];
     if (w < warp) before += s;
     total += s;
   }
@@ -122,7 +130,7 @@ __device__ __forceinline__ void count_key(unsigned (*h)[kDigits],
 // passes.
 __global__ void __launch_bounds__(kThreads)
 histogram_kernel(const long long* __restrict__ in, long long n,
-                 unsigned* __restrict__ state) {
+                 Word* __restrict__ state) {
   __shared__ unsigned hs[kHistCopies][kPasses][kDigits];
   __shared__ int active[kPasses];
   __shared__ bool last;
@@ -148,22 +156,22 @@ histogram_kernel(const long long* __restrict__ in, long long n,
     count_key(h, in[n - 1]);
   }
   __syncthreads();
-  unsigned* counts = state + kCountsAt;
+  Word* counts = state + kCountsAt;
   for (int i = threadIdx.x; i < kPasses * kDigits; i += kThreads) {
     unsigned c = 0;
     for (int copy = 0; copy < kHistCopies; ++copy) c += (&hs[copy][0][0])[i];
-    if (c) atomicAdd(&counts[i], c);
+    if (c) atomicAdd(&counts[i], (Word)c);
   }
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(&state[kDoneAt], 1u) == gridDim.x - 1;
+  if (threadIdx.x == 0) last = atomicAdd(&state[kDoneAt], 1ull) == gridDim.x - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();
   const int d = threadIdx.x;
   for (int p = 0; p < kPasses; ++p) {
-    const unsigned c = ((volatile unsigned*)counts)[p * kDigits + d];
-    unsigned total;
+    const Word c = ((volatile Word*)counts)[p * kDigits + d];
+    Word total;
     state[kBasesAt + p * kDigits + d] = block_exclusive_scan(c, &total);
     const int nonzero = __syncthreads_count(c != 0);
     if (d == 0) active[p] = nonzero > 1;
@@ -179,11 +187,11 @@ histogram_kernel(const long long* __restrict__ in, long long n,
     int src = kIn, a = 0;
     for (int p = 0; p < kPasses; ++p) {
       if (!active[p]) {
-        state[kPlanAt + p] = ~0u;
+        state[kPlanAt + p] = kSkip;
         continue;
       }
       const int dst = ((k - 1 - a) & 1) ? kTmp : kOut;
-      state[kPlanAt + p] = (unsigned)(src | dst << 2);
+      state[kPlanAt + p] = (Word)(src | dst << 2);
       src = dst;
       ++a;
     }
@@ -193,22 +201,23 @@ histogram_kernel(const long long* __restrict__ in, long long n,
 // One pass: a stable scatter of the keys by digit `pass`.
 __global__ void __launch_bounds__(kThreads, 4)
 scatter_kernel(const long long* in, long long* out, long long* tmp,
-               long long n, int pass, unsigned* __restrict__ state,
+               long long n, int pass, Word* __restrict__ state,
                long long tiles) {
   __shared__ long long tile_keys[kTileKeys];
   __shared__ unsigned warp_count[kWarps][kDigits];
   __shared__ unsigned tile_off[kDigits];
   __shared__ long long run_base[kDigits];
   __shared__ long long tile_s;
-  const int code = (int)state[kPlanAt + pass];
-  if (code < 0) return;  // every key has the same digit here
+  const Word plan = state[kPlanAt + pass];
+  if (plan == kSkip) return;  // every key has the same digit here
+  const int code = (int)plan;
   const long long* __restrict__ src =
       (code & 3) == kIn ? in : (code & 3) == kOut ? out : tmp;
   long long* __restrict__ dst = (code >> 2) == kOut ? out : tmp;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int d_own = threadIdx.x;  // this thread's digit in the scans
   if (threadIdx.x == 0) {
-    tile_s = atomicAdd(&state[kTicketAt + pass], 1u);
+    tile_s = (long long)atomicAdd(&state[kTicketAt + pass], 1ull);
   }
   for (int w = 0; w < kWarps; ++w) warp_count[w][d_own] = 0;
   __syncthreads();
@@ -248,7 +257,7 @@ scatter_kernel(const long long* in, long long* out, long long* tmp,
     warp_count[w][d_own] = count;
     count += c;
   }
-  volatile unsigned* lookback =
+  volatile Word* lookback =
       state + kLookbackAt + ((long long)pass * tiles + tile) * kDigits;
   lookback[d_own] = (tile == 0 ? kFlagPrefix : kFlagAggregate) | count;
   unsigned tile_keys_n;
@@ -265,10 +274,10 @@ scatter_kernel(const long long* in, long long* out, long long* tmp,
     }
   }
   // decoupled look-back: the digit's count in all earlier tiles
-  unsigned earlier = 0;
+  Word earlier = 0;
   if (tile > 0) {
     for (long long j = 1;; ++j) {
-      unsigned w;
+      Word w;
       do {
         w = lookback[-j * kDigits + d_own];
       } while (w == 0);
@@ -278,7 +287,7 @@ scatter_kernel(const long long* in, long long* out, long long* tmp,
     lookback[d_own] = kFlagPrefix | (earlier + count);
   }
   run_base[d_own] =
-      (long long)state[kBasesAt + pass * kDigits + d_own] + earlier - off;
+      (long long)(state[kBasesAt + pass * kDigits + d_own] + earlier) - off;
   __syncthreads();
 
   // write each digit's run
@@ -288,64 +297,112 @@ scatter_kernel(const long long* in, long long* out, long long* tmp,
   }
 }
 
-// Writes outputs [diag, diag + count) of the merge of sorted a[0, la) and
-// b[0, lb) to out[0, count).  The split point is the number of a's keys
-// among the first diag outputs (a's keys first on ties).
-__device__ __forceinline__ void merge_items(const long long* __restrict__ a,
-                                            long long la,
-                                            const long long* __restrict__ b,
-                                            long long lb, long long diag,
-                                            int count,
-                                            long long* __restrict__ out) {
+// The number of a's keys among outputs [0, diag) of the merge of sorted
+// a[0, la) and b[0, lb), a's keys first on ties; called by a whole warp.
+// The split is the first i with a[i] > b[diag - 1 - i]: each step probes
+// 32 points of the range at once and keeps the gap between the last probe
+// below the split and the first above it.
+__device__ long long warp_split(const long long* __restrict__ a, long long la,
+                                const long long* __restrict__ b, long long lb,
+                                long long diag) {
+  const int lane = threadIdx.x & 31;
   long long lo = diag > lb ? diag - lb : 0, hi = diag < la ? diag : la;
-  while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    if (a[mid] <= b[diag - 1 - mid]) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
+  while (hi - lo > 32) {
+    const long long m = hi - lo;
+    const long long i = lo + (lane + 1) * m / 33;  // in [lo, hi)
+    const unsigned below = __ballot_sync(0xffffffffu, a[i] <= b[diag - 1 - i]);
+    const int c = __popc(below);  // the probes below the split come first
+    const long long last = __shfl_sync(0xffffffffu, i, c > 0 ? c - 1 : 0);
+    const long long next = __shfl_sync(0xffffffffu, i, c < 32 ? c : 31);
+    if (c > 0) lo = last + 1;
+    if (c < 32) hi = next;
   }
-  long long i = lo, j = diag - lo;
-  for (int t = 0; t < count; ++t) {
-    const bool take_a = j >= lb || (i < la && a[i] <= b[j]);
-    out[t] = take_a ? a[i++] : b[j++];
-  }
+  const long long i = lo + lane;
+  const bool p = i < hi && a[i] <= b[diag - 1 - i];
+  return lo + __popc(__ballot_sync(0xffffffffu, p));
 }
 
+// One tile of kMergeTile outputs of the kept half per block: warps 0 and 1
+// find where the tile's first and last diagonals cross a and b, the block
+// loads the tile's a and b ranges into shared memory coalesced, each thread
+// merges kItems outputs there (its own split by a binary search in shared
+// memory), and the block stores the tile coalesced.
 __global__ void __launch_bounds__(kMergeThreads)
 merge_split_kernel(const long long* __restrict__ a,
                    const long long* __restrict__ b, long long L, int keep_high,
                    long long* __restrict__ out) {
-  const long long first =
-      ((long long)blockIdx.x * kMergeThreads + threadIdx.x) * kItems;
-  if (first >= L) return;
-  const long long left = L - first;
-  merge_items(a, L, b, L, first + (keep_high ? L : 0),
-              left < kItems ? (int)left : kItems, out + first);
+  __shared__ long long tile[kMergeTile];
+  __shared__ long long split[2];
+  const long long first = (long long)blockIdx.x * kMergeTile;
+  const int count = (int)(L - first < kMergeTile ? L - first : kMergeTile);
+  const long long diag = first + (keep_high ? L : 0);
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {
+    const long long s = warp_split(a, L, b, L, diag + (warp ? count : 0));
+    if ((threadIdx.x & 31) == 0) split[warp] = s;
+  }
+  __syncthreads();
+  const long long a0 = split[0], b0 = diag - a0;
+  const int na = (int)(split[1] - a0), nb = count - na;
+  for (int t = threadIdx.x; t < count; t += kMergeThreads) {
+    tile[t] = t < na ? a[a0 + t] : b[b0 + (t - na)];
+  }
+  __syncthreads();
+  // outputs [d, d + n) of the tile's merge of tile[0, na) and tile[na, count)
+  const int d = threadIdx.x * kItems;
+  const int n = count - d < kItems ? count - d : kItems;
+  long long v[kItems];
+  if (n > 0) {
+    int lo = d > nb ? d - nb : 0, hi = d < na ? d : na;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (tile[mid] <= tile[na + d - 1 - mid]) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    int i = lo, j = d - lo;
+#pragma unroll
+    for (int t = 0; t < kItems; ++t) {
+      if (t < n) {
+        const bool take_a = j >= nb || (i < na && tile[i] <= tile[na + j]);
+        v[t] = take_a ? tile[i++] : tile[na + j++];
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int t = 0; t < kItems; ++t) {
+    if (t < n) tile[d + t] = v[t];
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < count; t += kMergeThreads) {
+    out[first + t] = tile[t];
+  }
 }
 
 long long sort_tiles(long long n) { return (n + kTileKeys - 1) / kTileKeys; }
 
 }  // namespace
 
-// Words of the uint32 state mesh_sort_launch takes for n keys.
+// 64-bit words of the state mesh_sort_launch takes for n keys.
 extern "C" long long mesh_sort_state_words(long long n) {
   return kLookbackAt + kPasses * sort_tiles(n) * kDigits;
 }
 
-// in, out, tmp: int64 [n], 1 <= n < 2^30; state: uint32
+// in, out, tmp: int64 [n], n >= 1; state: 64-bit words
 // [mesh_sort_state_words(n)] scratch, zeroed here.  The sorted keys land in
 // out; in is only read.  Returns the cudaError_t of the launches.
 extern "C" int mesh_sort_launch(const long long* in, long long* out,
-                                long long* tmp, unsigned* state, long long n,
+                                long long* tmp, Word* state, long long n,
                                 void* stream) {
-  if (n < 1 || n > kMaxKeys || tmp == nullptr || state == nullptr) {
+  if (n < 1 || tmp == nullptr || state == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(
-      state, 0, sizeof(unsigned) * (size_t)mesh_sort_state_words(n), s);
+      state, 0, sizeof(Word) * (size_t)mesh_sort_state_words(n), s);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0;
   e = cudaGetDevice(&dev);
@@ -377,7 +434,7 @@ extern "C" int mesh_merge_split_launch(const long long* a, const long long* b,
                                        long long* out, void* stream) {
   if (L < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = (unsigned)((L + kSpan - 1) / kSpan);
+  const unsigned blocks = (unsigned)((L + kMergeTile - 1) / kMergeTile);
   merge_split_kernel<<<blocks, kMergeThreads, 0, s>>>(a, b, L, keep_high, out);
   return (int)cudaGetLastError();
 }

@@ -22,15 +22,27 @@
 // What bounds it: one dependent, random 16-byte adjacency row load per
 // expanded node (the packed [N+1, 4] int32 adjacency, neighbor << 7 |
 // min(weight, 127)); the arithmetic is a few compares per slot.  Its
-// design against that: one thread per source with the working set in
-// registers (all indexing is over compile-time C, so the arrays need not
-// live in local memory), one vectorized int4 load per row through the
-// read-only path, and a persistent grid at full occupancy whose threads
-// claim sources from a device cursor, so a thread that finishes a small
-// ball starts the next source at once instead of idling behind the
-// largest ball of a fixed batch.  Sources arrive sorted by the caller for
-// gather locality.  A warp-per-source layout and L2 residency control
-// are left for later.
+// design against that:
+//
+//   * one thread per source, assigned statically (thread i takes source
+//     i): no cursor to claim from and nothing to zero before the launch;
+//     the hardware's block scheduler starts a new block wherever one
+//     finishes, which balances the small balls of these capacities;
+//   * the working set is one register array of C keys, dist << 24 | node
+//     (node < 2^24, the packed-output precondition), empty slots
+//     (127 << 24) | sentinel, and a bit mask of the settled entries: the
+//     next entry to expand is the least unsettled key (C unsigned mins), a
+//     relaxation is one compare and one min per entry, and the final row
+//     order is the keys' order, so a bitonic network over the C registers
+//     sorts them (all indexing is over compile-time C, so the array never
+//     leaves the registers);
+//   * C in {4, 8, 16, 32}: at C = 64 one thread per source is several
+//     times slower than the wide kernel's warp per source (a warp runs as
+//     long as its largest ball, and every step scans all C registers;
+//     PERF.md), so ops/sssp.py sends C = 64 there;
+//   * one vectorized int4 load per row through the read-only path, and the
+//     row written as C/4 int4 stores, so a warp's stores are contiguous;
+//   * the launch queries nothing: the grid is ceil(S / 256) blocks.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (a plain C ABI, loaded with ctypes).
@@ -41,7 +53,9 @@
 namespace {
 
 constexpr int kDistBits = 7;
-constexpr int kDistCap = (1 << kDistBits) - 1;  // empty-slot distance
+constexpr unsigned kDistCap = (1u << kDistBits) - 1;  // empty-slot distance
+constexpr int kNodeBits = 24;
+constexpr unsigned kNodeMask = (1u << kNodeBits) - 1;
 constexpr int kBlock = 256;
 
 template <int C>
@@ -49,151 +63,168 @@ __global__ void __launch_bounds__(kBlock)
 sssp_pool_kernel(const int4* __restrict__ adj, int sentinel,
                  const int* __restrict__ sources, int n_sources,
                  int max_weight, int* __restrict__ out,
-                 uint8_t* __restrict__ overflow, int* __restrict__ cursor) {
-  for (;;) {
-    const int i = atomicAdd(cursor, 1);
-    if (i >= n_sources) return;
-    const int src = sources[i];
+                 uint8_t* __restrict__ overflow) {
+  static_assert(C >= 4 && C <= 32 && (C & (C - 1)) == 0,
+                "C is a power of two in [4, 32]");
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  if (i >= n_sources) return;
+  const int src = __ldg(sources + i);
+  // an empty slot's key is above every real key (dist <= max_weight < 126)
+  const unsigned empty = (kDistCap << kNodeBits) | (unsigned)sentinel;
+  unsigned key[C];
+#pragma unroll
+  for (int t = 0; t < C; ++t) key[t] = empty;
+  // the sentinel source has an empty ball; an id outside [0, sentinel]
+  // is flagged instead of read
+  const bool real = src >= 0 && src < sentinel;
+  bool over = !real && src != sentinel;
+  int n = 0;
+  if (real) {
+    key[0] = (unsigned)src;  // dist 0
+    n = 1;
+  }
+  unsigned settled = 0;  // bit t: entry t expanded
 
-    int node[C];
-    int dist[C];
+  while (!over) {
+    // the unsettled entry of least (dist, node)
+    unsigned best = empty;
 #pragma unroll
     for (int t = 0; t < C; ++t) {
-      node[t] = sentinel;
-      dist[t] = kDistCap;
+      best = min(best, (settled >> t) & 1u ? empty : key[t]);
     }
-    // the sentinel source has an empty ball; an id outside [0, sentinel]
-    // is flagged instead of read
-    const bool real = src >= 0 && src < sentinel;
-    bool over = !real && src != sentinel;
-    int n = 0;
-    if (real) {
-      node[0] = src;
-      dist[0] = 0;
-      n = 1;
-    }
-    unsigned long long settled = 0;  // bit t: entry t expanded
-
-    while (!over) {
-      // the unsettled entry of least distance
-      int best = -1, bu = 0, bd = kDistCap;
+    if (best == empty) break;
+#pragma unroll
+    for (int t = 0; t < C; ++t) settled |= (key[t] == best ? 1u : 0u) << t;
+    const int bd = (int)(best >> kNodeBits);
+    const int4 row = __ldg(adj + (best & kNodeMask));
+    const int slots[4] = {row.x, row.y, row.z, row.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int v = slots[j] >> kDistBits;
+      const int nd = bd + (slots[j] & (int)kDistCap);
+      if (v == sentinel || nd > max_weight) continue;
+      const unsigned nk = ((unsigned)nd << kNodeBits) | (unsigned)v;
+      // the entry of node v keeps the lesser key (a settled entry holds
+      // dist <= bd <= nd, so it is never lowered)
+      bool found = false;
 #pragma unroll
       for (int t = 0; t < C; ++t) {
-        if (t < n && !((settled >> t) & 1ull) && dist[t] < bd) {
-          best = t;
-          bu = node[t];
-          bd = dist[t];
-        }
+        const bool same = ((key[t] ^ (unsigned)v) & kNodeMask) == 0;
+        found |= same;
+        key[t] = min(key[t], same ? nk : ~0u);
       }
-      if (best < 0) break;
-      settled |= 1ull << best;
-      const int4 row = __ldg(adj + bu);
-      const int slots[4] = {row.x, row.y, row.z, row.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int v = slots[j] >> kDistBits;
-        const int nd = bd + (slots[j] & kDistCap);
-        if (v == sentinel || nd > max_weight) continue;
-        bool found = false;
-#pragma unroll
-        for (int t = 0; t < C; ++t) {
-          if (t < n && node[t] == v) {
-            found = true;
-            // settled entries hold dist <= bd <= nd: never lowered
-            if (nd < dist[t]) dist[t] = nd;
-          }
-        }
-        if (found) continue;
-        if (n == C) {
-          over = true;
-          break;
-        }
-#pragma unroll
-        for (int t = 0; t < C; ++t) {
-          if (t == n) {
-            node[t] = v;
-            dist[t] = nd;
-          }
-        }
-        ++n;
+      if (found) continue;
+      if (n == C) {
+        over = true;
+        break;
       }
+#pragma unroll
+      for (int t = 0; t < C; ++t) key[t] = t == n ? nk : key[t];
+      ++n;
     }
-
-    // Sort by (dist, node): key = dist << 24 | node (node < 2^24, the
-    // packed-output precondition), odd-even transposition over static
-    // indices so the arrays stay in registers.
-    int key[C];
-#pragma unroll
-    for (int t = 0; t < C; ++t) key[t] = (dist[t] << 24) | node[t];
-#pragma unroll
-    for (int pass = 0; pass < C; ++pass) {
-#pragma unroll
-      for (int t = pass & 1; t + 1 < C; t += 2) {
-        const int a = key[t], b = key[t + 1];
-        key[t] = min(a, b);
-        key[t + 1] = max(a, b);
-      }
-    }
-    int* row_out = out + (size_t)i * C;
-#pragma unroll
-    for (int t = 0; t < C; ++t) {
-      row_out[t] = ((key[t] & 0xFFFFFF) << kDistBits) | (key[t] >> 24);
-    }
-    overflow[i] = over ? 1 : 0;
   }
+
+  // (dist, node) order is the keys' order: a bitonic network over the
+  // registers
+#pragma unroll
+  for (int size = 2; size <= C; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+#pragma unroll
+      for (int t = 0; t < C; ++t) {
+        const int p = t ^ stride;
+        if (p > t) {
+          const unsigned a = key[t], b = key[p];
+          const bool up = (t & size) == 0;
+          key[t] = up ? min(a, b) : max(a, b);
+          key[p] = up ? max(a, b) : min(a, b);
+        }
+      }
+    }
+  }
+  int4* row_out = reinterpret_cast<int4*>(out + (size_t)i * C);
+#pragma unroll
+  for (int q = 0; q < C / 4; ++q) {
+    int w[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const unsigned x = key[4 * q + t];
+      w[t] = (int)(((x & kNodeMask) << kDistBits) | (x >> kNodeBits));
+    }
+    row_out[q] = make_int4(w[0], w[1], w[2], w[3]);
+  }
+  overflow[i] = over ? 1 : 0;
 }
 
 template <int C>
 int launch(const int* adj, int n_nodes, const int* sources, int n_sources,
-           int max_weight, int* out, uint8_t* overflow, int* cursor,
-           cudaStream_t stream) {
-  int device = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, sssp_pool_kernel<C>, kBlock, 0);
-  long long grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  const long long want = ((long long)n_sources + kBlock - 1) / kBlock;
-  if (want < grid) grid = want;
-  if (grid < 1) grid = 1;
-  sssp_pool_kernel<C><<<(unsigned)grid, kBlock, 0, stream>>>(
+           int max_weight, int* out, uint8_t* overflow, cudaStream_t stream) {
+  const unsigned grid = (unsigned)((n_sources + kBlock - 1) / kBlock);
+  sssp_pool_kernel<C><<<grid, kBlock, 0, stream>>>(
       reinterpret_cast<const int4*>(adj), n_nodes, sources, n_sources,
-      max_weight, out, overflow, cursor);
+      max_weight, out, overflow);
   return (int)cudaGetLastError();
+}
+
+template <int C>
+int attributes(int* regs, int* local_bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, sssp_pool_kernel<C>);
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return (int)e;
 }
 
 }  // namespace
 
 // adj: int32 [n_nodes + 1, 4] packed adjacency (row n_nodes = sentinel);
-// sources: int32 [n_sources] in [0, n_nodes]; out: int32 [n_sources, C];
-// overflow: uint8 [n_sources]; cursor: one int32, zero on entry.
-// The grid is sized from occupancy alone: threads claim sources from the
-// cursor, so the grid size never changes the output.  Returns the
-// cudaError_t of the launch (0 = success); an unsupported capacity
-// returns cudaErrorInvalidValue without launching.
+// sources: int32 [n_sources] in [0, n_nodes], n_sources >= 1; out: int32
+// [n_sources, C], 16-byte aligned; overflow: uint8 [n_sources].  The launch
+// goes to `device` on `stream`, whatever device the calling thread has
+// current.  Returns the cudaError_t of the launch (0 = success); an
+// unsupported capacity returns cudaErrorInvalidValue without launching.
 extern "C" int sssp_pool_launch(const int* adj, int n_nodes,
                                 const int* sources, int n_sources,
                                 int max_weight, int capacity, int* out,
-                                uint8_t* overflow, int* cursor,
-                                void* stream) {
+                                uint8_t* overflow, int device, void* stream) {
+  int current = device;
+  cudaError_t e = cudaGetDevice(&current);
+  if (e == cudaSuccess && current != device) e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err;
   switch (capacity) {
     case 4:
-      return launch<4>(adj, n_nodes, sources, n_sources, max_weight, out,
-                       overflow, cursor, s);
+      err = launch<4>(adj, n_nodes, sources, n_sources, max_weight, out,
+                      overflow, s);
+      break;
     case 8:
-      return launch<8>(adj, n_nodes, sources, n_sources, max_weight, out,
-                       overflow, cursor, s);
+      err = launch<8>(adj, n_nodes, sources, n_sources, max_weight, out,
+                      overflow, s);
+      break;
     case 16:
-      return launch<16>(adj, n_nodes, sources, n_sources, max_weight, out,
-                        overflow, cursor, s);
+      err = launch<16>(adj, n_nodes, sources, n_sources, max_weight, out,
+                       overflow, s);
+      break;
     case 32:
-      return launch<32>(adj, n_nodes, sources, n_sources, max_weight, out,
-                        overflow, cursor, s);
-    case 64:
-      return launch<64>(adj, n_nodes, sources, n_sources, max_weight, out,
-                        overflow, cursor, s);
+      err = launch<32>(adj, n_nodes, sources, n_sources, max_weight, out,
+                       overflow, s);
+      break;
     default:
-      return (int)cudaErrorInvalidValue;
+      err = (int)cudaErrorInvalidValue;
+  }
+  if (current != device) cudaSetDevice(current);
+  return err;
+}
+
+// Registers per thread and local (spilled) bytes per thread of the kernel
+// at `capacity`, from cudaFuncGetAttributes.  Returns the cudaError_t.
+extern "C" int sssp_pool_attributes(int capacity, int* regs, int* local_bytes) {
+  switch (capacity) {
+    case 4: return attributes<4>(regs, local_bytes);
+    case 8: return attributes<8>(regs, local_bytes);
+    case 16: return attributes<16>(regs, local_bytes);
+    case 32: return attributes<32>(regs, local_bytes);
+    default: return (int)cudaErrorInvalidValue;
   }
 }

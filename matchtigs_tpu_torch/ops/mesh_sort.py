@@ -3,8 +3,9 @@ acceptance sort (:func:`matchtigs_tpu_torch.parallel.mesh.sharded_accept_key_sor
 
 A CUDA tensor launches ``csrc/mesh_sort.cu`` on the current stream without
 synchronizing (``mesh_sort_launch``: a key-only LSD radix sort, 8 passes of
-8-bit digits; ``mesh_merge_split_launch``: one merge-path pass over half of
-the outputs); a CPU tensor runs the plain torch version beside each.
+8-bit digits; ``mesh_merge_split_launch``: a merge path over half of the
+outputs, a tile per block through shared memory); a CPU tensor runs the
+plain torch version beside each.
 """
 
 from __future__ import annotations
@@ -14,7 +15,6 @@ import torch
 from .sssp import KERNEL_LAUNCHES, build_kernels
 
 TILE = 4096  # keys per tile of the sort's scatter passes (kTileKeys)
-MAX_KEYS = (1 << 30) - 1  # the sort's look-back holds counts in 30 bits
 
 
 def _check_keys(*keys: torch.Tensor) -> None:
@@ -39,15 +39,13 @@ def sort_keys(keys: torch.Tensor) -> torch.Tensor:
     if keys.device.type == "cpu":
         return sort_keys_plain(keys)
     n = keys.shape[0]
-    if n > MAX_KEYS:
-        raise ValueError(f"the sort takes at most {MAX_KEYS} keys, got {n}")
     out = torch.empty_like(keys)
     if n == 0:
         return out
     tmp = torch.empty_like(keys)
     lib = build_kernels()["mesh_sort"]
     state = torch.empty(
-        (lib.mesh_sort_state_words(n),), dtype=torch.int32, device=keys.device
+        (lib.mesh_sort_state_words(n),), dtype=torch.int64, device=keys.device
     )
     with torch.cuda.device(keys.device):
         err = lib.mesh_sort_launch(

@@ -24,10 +24,11 @@ adjacency needs max_weight < 127.  Outside them (k >= 128, huge graphs)
 the stage runs on the unpacked ``(nbr, nw)`` pair with unpacked rows.
 
 Routing: the pool schedule over the packed adjacency with four slots per
-row and C in ``CAPACITIES`` runs the register kernel ``csrc/sssp_pool.cu``;
-every other capacity, degree, layout and the batch schedule run the wide
-kernel ``csrc/sssp_wide.cu`` (a warp per source up to
-``WARP_TIER_CAPACITY`` members, then a second tier for the larger balls).
+row and C in ``CAPACITIES`` (4 to 32) runs the register kernel
+``csrc/sssp_pool.cu`` (a thread per source); every other capacity, degree,
+layout and the batch schedule run the wide kernel ``csrc/sssp_wide.cu`` (a
+warp per source up to ``WARP_TIER_CAPACITY`` members, then a second tier
+for the larger balls).
 ``csrc/sssp_compact.cu`` compacts a packed stage's valid slots on the
 device for a smaller download.
 
@@ -53,7 +54,9 @@ from .device_graph import ADJ_W_BITS, ADJ_W_MASK, DeviceGraph
 INF = np.int32(1 << 20)  # unpacked empty-slot distance
 DIST_BITS = 7  # distances < 128 (k <= 127); nodes < 2^24 for packed rows
 DIST_CAP = (1 << DIST_BITS) - 1  # empty-slot distance in packed rows
-CAPACITIES = (4, 8, 16, 32, 64)  # the register kernel's compiled capacities
+# the register kernel's compiled capacities; at C = 64 the wide kernel's
+# warp tier is faster (csrc/sssp_pool.cu)
+CAPACITIES = (4, 8, 16, 32)
 MAX_WIDE_CAPACITY = 1 << 20  # the wide kernel's largest capacity
 # members per source of the wide kernel's warp tier; a larger ball at a
 # larger capacity is redone by its second tier (csrc/sssp_wide.cu)
@@ -139,8 +142,10 @@ def build_kernels() -> dict[str, ctypes.CDLL]:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     libs = {s.stem: ctypes.CDLL(str(out_dir / f"{s.stem}.so")) for s in sources}
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    pi = ctypes.POINTER(ctypes.c_int)
     for fn, args in (
-        (libs["sssp_pool"].sssp_pool_launch, [vp, ci, vp, ci, ci, ci, vp, vp, vp, vp]),
+        (libs["sssp_pool"].sssp_pool_launch, [vp, ci, vp, ci, ci, ci, vp, vp, ci, vp]),
+        (libs["sssp_pool"].sssp_pool_attributes, [ci, pi, pi]),
         (libs["sssp_wide"].sssp_wide_launch, [
             vp, vp, ci, ci, vp, ci, ci, ci, vp, vp, vp, ci, vp, ll, vp,
         ]),
@@ -217,23 +222,36 @@ def pool_sssp(
     if adj.device.type != "cuda":
         raise ValueError(f"unsupported device {adj.device}")
     lib = build_kernels()["sssp_pool"]
-    S = sources.shape[0]
-    out = torch.empty((S, capacity), dtype=torch.int32, device=adj.device)
-    over = torch.empty((S,), dtype=torch.uint8, device=adj.device)
+    S, dev = sources.shape[0], adj.device
+    # one allocation for the rows and the flags behind them
+    buf = torch.empty((S * capacity + (S + 3) // 4,), dtype=torch.int32, device=dev)
+    out = buf[: S * capacity].view(S, capacity)
+    over = buf[S * capacity:].view(torch.uint8)[:S]
     if S == 0:
         return out, over
-    cursor = torch.zeros((1,), dtype=torch.int32, device=adj.device)
-    with torch.cuda.device(adj.device):
-        stream = torch.cuda.current_stream(adj.device).cuda_stream
-        err = lib.sssp_pool_launch(
-            adj.data_ptr(), adj.shape[0] - 1, sources.data_ptr(), S,
-            int(max_weight), capacity, out.data_ptr(), over.data_ptr(),
-            cursor.data_ptr(), stream,
-        )
+    # The launch sets the device itself, so no device guard here; the raw
+    # handle of the current stream spares building a torch.cuda.Stream.
+    err = lib.sssp_pool_launch(
+        adj.data_ptr(), adj.shape[0] - 1, sources.data_ptr(), S,
+        int(max_weight), capacity, out.data_ptr(), over.data_ptr(),
+        dev.index, torch._C._cuda_getCurrentRawStream(dev.index),
+    )
     if err != 0:
         raise RuntimeError(f"sssp_pool_launch failed: cudaError {err}")
     KERNEL_LAUNCHES["sssp_pool"] += 1
     return out, over
+
+
+def pool_kernel_attributes(capacity: int) -> tuple[int, int]:
+    """(registers per thread, spilled local bytes per thread) of the
+    register kernel at ``capacity`` (``cudaFuncGetAttributes``; builds the
+    kernels, needs CUDA)."""
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    err = build_kernels()["sssp_pool"].sssp_pool_attributes(
+        capacity, ctypes.byref(regs), ctypes.byref(local))
+    if err != 0:
+        raise RuntimeError(f"sssp_pool_attributes failed: cudaError {err}")
+    return regs.value, local.value
 
 
 def wide_sssp(

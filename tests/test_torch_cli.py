@@ -89,3 +89,36 @@ def test_cli_refuses_unported_algorithms(unitig_fa, tmp_path, flag, capsys):
     with pytest.raises(SystemExit):
         t_main(["--fa-in", str(path), "-k", str(k), flag, str(tmp_path / "x")])
     assert "not yet ported" in capsys.readouterr().err
+
+
+def test_cli_accepts_sssp_batch_size_as_a_no_op(unitig_fa, tmp_path, caplog):
+    """A JAX command line that passes --sssp-batch-size runs on the port:
+    the flag is logged as ignored and the fasta is the same as without it."""
+    path, k = unitig_fa
+    outs = []
+    for options in ([], ["--sssp-batch-size", "64"]):
+        out = tmp_path / f"g{len(options)}.fa"
+        caplog.clear()
+        with caplog.at_level("INFO", logger="matchtigs_tpu_torch"):
+            rc = t_main(["--fa-in", str(path), "-k", str(k),
+                         "--greedytigs-fa-out", str(out), *options])
+        assert rc == 0
+        noted = [r.getMessage() for r in caplog.records if "--sssp-batch-size" in r.getMessage()]
+        assert noted == (["--sssp-batch-size 64 is accepted for compatibility and "
+                          "ignored: the port's device search has no batch size"]
+                         if options else [])
+        outs.append(out.read_bytes())
+    assert outs[0] == outs[1] and len(outs[0]) > 0
+
+
+def test_cli_tunes_malloc_once(unitig_fa, tmp_path, monkeypatch):
+    """main tunes the host allocator once, right after logging is set up,
+    as the JAX CLI does."""
+    from matchtigs_tpu_torch.utils import malloc_tuning
+
+    calls = []
+    monkeypatch.setattr(malloc_tuning, "tune_malloc", lambda: calls.append(1) or True)
+    path, k = unitig_fa
+    rc = t_main(["--fa-in", str(path), "-k", str(k), "--greedytigs-fa-out",
+                 str(tmp_path / "g.fa"), "--log-level", "Warning"])
+    assert rc == 0 and calls == [1]

@@ -73,6 +73,101 @@ def test_kernel_matches_plain(cuda_device, case, capacity):
     _assert_rows_equal((key, None, over), want)
 
 
+@pytest.fixture(scope="module")
+def pangenome_sources():
+    """A pangenome from the flagship's generator (k=31, 7 strains, 1%
+    mutations, repeats), cut to 300 kbp: its device graph and its device
+    sources in the caller's order, of which the first 20,000 are used."""
+    from matchtigs_tpu_torch.algos.greedytigs import split_device_sources
+    from matchtigs_tpu_torch.ops.matching import unbalanced_nodes
+
+    store, _, k = testing.make_pangenome_store(
+        genome_length=300_000, k=31, n_strains=7, mutation_rate=0.01, seed=0,
+        with_repeats=True,
+    )
+    g = build_bigraph_from_unitigs(store, k)
+    dg = build_device_graph(g)
+    pending, _ = split_device_sources(
+        dg, unbalanced_nodes(g)[0], GreedytigConfig.host_route_threshold
+    )
+    assert len(pending) >= 20_000
+    return dg, k, torch.from_numpy(np.ascontiguousarray(pending, np.int32))
+
+
+@pytest.mark.parametrize("S", [0, 1, 31, 33, 1000, 20_000])
+@pytest.mark.parametrize("capacity", [*sssp.CAPACITIES, 64])
+def test_pool_matches_plain_at_every_capacity(cuda_device, pangenome_sources, capacity, S):
+    """The register kernel at each of its capacities, and C = 64 on the
+    wide kernel, on the first S device sources of a flagship-style
+    pangenome (S = 1000 is no multiple of the 256-thread block)."""
+    dg, k, pending = pangenome_sources
+    src = pending[:S].contiguous()
+    kernel = "sssp_pool" if capacity in sssp.CAPACITIES else "sssp_wide"
+    before = dict(sssp.KERNEL_LAUNCHES)
+    key, over = sssp.pool_sssp(dg.device_buffers(cuda_device), src.to(cuda_device), k - 1, capacity)
+    torch.cuda.synchronize()
+    assert key.shape == (S, capacity) and over.shape == (S,)
+    assert sssp.KERNEL_LAUNCHES[kernel] == before[kernel] + (S > 0)
+    assert sum(sssp.KERNEL_LAUNCHES.values()) == sum(before.values()) + (S > 0)
+    want = sssp.pool_sssp_plain(dg.device_buffers("cpu"), src, k - 1, capacity)
+    _assert_rows_equal((key, None, over), want)
+
+
+@pytest.mark.parametrize("capacity", sssp.CAPACITIES)
+def test_pool_sentinel_and_out_of_range_sources(cuda_device, pangenome_sources, capacity):
+    """The sentinel source gets an empty row and no flag; ids outside
+    [0, sentinel] are flagged, never read."""
+    dg, k, pending = pangenome_sources
+    sentinel = dg.n_nodes
+    src = torch.tensor([sentinel, -1, sentinel + 1, (1 << 30), -(1 << 31), *pending[:27].tolist()],
+                       dtype=torch.int32)
+    key, over = sssp.pool_sssp(dg.device_buffers(cuda_device), src.to(cuda_device), k - 1, capacity)
+    key, over = key.cpu(), over.cpu()
+    assert over[:5].tolist() == [0, 1, 1, 1, 1]
+    empty = (sentinel << sssp.DIST_BITS) | sssp.DIST_CAP
+    assert key[0].tolist() == [empty] * capacity
+    want = sssp.pool_sssp_plain(dg.device_buffers("cpu"), src, k - 1, capacity)
+    _assert_rows_equal((key, None, over), want)
+
+
+def test_pool_back_to_back_calls_on_one_stream(cuda_device, pangenome_sources):
+    """Calls enqueued one after another without a synchronize, at every
+    capacity and twice each: each equals the plain version (state left
+    behind by one launch would show in the next)."""
+    dg, k, pending = pangenome_sources
+    adj = dg.device_buffers(cuda_device)
+    src = pending[:20_000].contiguous()
+    dev_src = src.to(cuda_device)
+    runs = [(C, sssp.pool_sssp(adj, dev_src, k - 1, C)) for C in sssp.CAPACITIES for _ in range(2)]
+    torch.cuda.synchronize()
+    for C, got in runs:
+        _assert_rows_equal((got[0], None, got[1]),
+                           sssp.pool_sssp_plain(dg.device_buffers("cpu"), src, k - 1, C))
+
+
+def test_pool_on_a_device_that_is_not_current(cuda_device, pangenome_sources):
+    """Operands on cuda:0 while cuda:1 is current: the launch goes to the
+    operands' device."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dg, k, pending = pangenome_sources
+    dev0 = torch.device("cuda", 0)
+    src = pending[:1000].contiguous()
+    adj, dev_src = dg.device_buffers(dev0), src.to(dev0)
+    with torch.cuda.device(1):
+        key, over = sssp.pool_sssp(adj, dev_src, k - 1, 4)
+        torch.cuda.synchronize(dev0)
+    _assert_rows_equal((key, None, over),
+                       sssp.pool_sssp_plain(dg.device_buffers("cpu"), src, k - 1, 4))
+
+
+def test_pool_kernel_spills_nothing(cuda_device):
+    """The working set of C keys stays in registers at every capacity."""
+    for capacity in sssp.CAPACITIES:
+        regs, local = sssp.pool_kernel_attributes(capacity)
+        assert 0 < regs <= 255 and local == 0, (capacity, regs, local)
+
+
 # (layout, max_weight offset): packed at k-1; the unpacked pair and rows at
 # max_weight 30 and 130 (the k=131 bound).
 LAYOUTS = {"packed": None, "unpacked-30": 30, "unpacked-130": 130}
@@ -403,8 +498,27 @@ def test_mesh_sort_takes_an_unaligned_view(cuda_device):
     assert torch.equal(got.cpu(), mesh_sort.sort_keys_plain(keys.cpu()))
 
 
+def test_mesh_sort_past_a_30_bit_count(cuda_device):
+    """2^30 + 4097 random keys, more than a 30-bit look-back count holds,
+    equal torch.sort's (~45 GB of the card while torch.sort checks them;
+    all of it is freed after)."""
+    n = (1 << 30) + 4097
+    keys = got = want = None
+    try:
+        gen = torch.Generator(device=cuda_device).manual_seed(30)
+        keys = torch.randint(-(1 << 63), (1 << 63) - 1, (n,), dtype=torch.int64,
+                             device=cuda_device, generator=gen)
+        got = mesh_sort.sort_keys(keys)
+        want = torch.sort(keys).values
+        keys = None
+        assert torch.equal(got, want)
+    finally:
+        del keys, got, want
+        torch.cuda.empty_cache()
+
+
 @pytest.mark.parametrize("keep_high", [False, True])
-@pytest.mark.parametrize("L", [1, 7, 2049, 100_000])
+@pytest.mark.parametrize("L", [1, 7, 2049, 2303, 2304, 2305, 100_000, 2_593_945])
 def test_mesh_merge_split_matches_plain(cuda_device, L, keep_high):
     a = torch.from_numpy(np.sort(_keys(L, "duplicates", seed=1)))
     b = torch.from_numpy(np.sort(_keys(L, "padding", seed=2)))

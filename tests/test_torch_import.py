@@ -17,6 +17,9 @@ store, kmers, k = testing.make_unitig_store(genome_length=3000, k=9, seed=0)
 g = mt.build_bigraph_from_unitigs(store, k)
 tigs = mt.compute_greedytigs(g, mt.GreedytigConfig(k=k, engine="host"))
 testing.assert_tigs_spell_kmer_set(g, tigs, store, k, kmers, allow_duplicates=True)
+import matchtigs_tpu_torch.cli
+from matchtigs_tpu_torch.utils import malloc_tuning
+assert malloc_tuning.tune_malloc() and malloc_tuning.prewarm_heap(1 << 20) in (True, False)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "matchtigs_tpu"))
 print("LEAKED", bad)
 assert not bad, bad
