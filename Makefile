@@ -3,7 +3,7 @@
 
 PY ?= python
 
-.PHONY: test test-fast bench native cabi clean
+.PHONY: test test-fast bench native cabi cabi-torch clean
 
 test:
 	$(PY) -m pytest tests/ -q
@@ -23,6 +23,10 @@ cabi:
 	gcc -shared -fPIC -O2 native/capi_embed.c \
 	  $$(python3-config --includes) -o libmatchtigs_tpu.so \
 	  $$(python3-config --ldflags --embed)
+
+# The port's C ABI: the same surface over matchtigs_tpu_torch.capi
+cabi-torch:
+	$(PY) -c "from matchtigs_tpu_torch import native; native.build_capi('libmatchtigs_tpu_torch.so')"
 
 clean:
 	rm -rf matchtigs_tpu/native/_native.so .jax_cache .bench_data \

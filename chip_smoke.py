@@ -1,9 +1,10 @@
 """Smoke run of matchtigs_tpu_torch on one NVIDIA GPU.
 
-Drives the port's main path, greedy matchtigs, through its CLI on the
-repository's flagship dataset (synthetic 10 Mbp pangenome, 7 strains, 1%
-mutations, repeats, k=31), after building every kernel from the sources
-in the checkout and holding each against its plain PyTorch version:
+Drives the port's main paths, greedy and optimal matchtigs, through its
+CLI on the repository's flagship dataset (synthetic 10 Mbp pangenome, 7
+strains, 1% mutations, repeats, k=31), then pathtigs and eulertigs and the
+C ABI, after building every kernel from the sources in the checkout and
+holding each against its plain PyTorch version:
 
 - ``kernel_vs_plain`` / ``kernel_main_shape``: the register kernel
   (``csrc/sssp_pool.cu``) on two graphs and on all flagship device sources
@@ -24,6 +25,16 @@ in the checkout and holding each against its plain PyTorch version:
   stage kernel, one cold call after the upload, beside the warm loop's);
 - ``cli_ladder``: the CLI with ``--sssp-overflow-mode ladder`` (the wide
   kernel serves the stages at C >= 256);
+- ``cli_matchtigs``: the optimal-matchtigs CLI with its fasta, duplication
+  bitvector and matching files (one register-kernel launch), against
+  library runs of the device and host engines;
+- ``cli_pathtigs_eulertigs``: one CLI run writing pathtigs and eulertigs
+  (host-only: no kernel launch), each spelling every k-mer exactly once;
+- ``capi_device``: the port's C library (``native/capi_embed.c``, built
+  with gcc and loaded into this interpreter with ctypes) over the
+  flagship's topology as merge calls, algorithm ids 1-5 (ids 4 and 5 on
+  the card: one register-kernel launch each), against
+  ``TigGraphBuilder.compute_tigs`` with the host engine;
 - ``cli_k131``: the CLI at k=131 on a string-generated input (unpacked
   adjacency and rows);
 - ``mesh_sort_vs_plain``: the mesh's radix sort and merge-split kernels
@@ -39,7 +50,8 @@ in the checkout and holding each against its plain PyTorch version:
 
 Each kernel's ``launches`` in the kernels line is read from path runs
 with the counts set to 0 just before each: ``sssp_pool`` from
-``cli_device``, ``mesh_stage`` and ``mesh_two_process``, ``sssp_wide`` from
+``cli_device``, ``cli_matchtigs``, ``capi_device``, ``mesh_stage`` and
+``mesh_two_process``, ``sssp_wide`` from
 ``cli_ladder`` and ``cli_k131``, ``sssp_compact`` from the compact dispatch
 of ``compact_vs_full``, ``mesh_sort`` and ``mesh_merge_split`` from
 ``mesh_two_process``.  Each kernel's ``bound_ms`` is the larger of its
@@ -65,10 +77,12 @@ without one.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import gzip
 import json
 import logging
 import math
+import os
 import socket
 import subprocess
 import sys
@@ -98,6 +112,8 @@ WIDE_UNPACKED_BOUND = 30  # the k=31 bound on the unpacked layouts
 DEEP_BOUND, DEEP_CAPACITY = 130, 256  # the k=131 bound on the flagship
 MAX_BALL = 1 << 16  # GreedytigConfig.max_capacity
 DEVICE_TYPE = "cuda"
+ONE_POOL_LAUNCH = {"sssp_pool": 1, "sssp_wide": 0, "sssp_compact": 0, "mesh_sort": 0,
+                   "mesh_merge_split": 0}
 MESH_SHARDS = 4  # in-process shards of the mesh phases, all on the one card
 SORT_EDGE_SIZES = (0, 1, 2049)  # empty, one key, and an odd size past 2048
 COMPACT_LONG_ROW = 5000  # slots per row above the compaction's 4096-slot tile
@@ -350,17 +366,77 @@ def write_fasta(path: Path, store) -> None:
                          for i in range(len(store))))
 
 
-def spelled_kmer_set(store, k: int) -> np.ndarray:
-    """Sorted unique canonical packed k-mers (k <= 31) of every sequence in
-    ``store``: one rolling pack over the concatenated codes, keeping the
-    k-mers that lie inside one sequence."""
-    from matchtigs_tpu_torch.utils import dna
+def spelled_kmers(store, k: int, device) -> torch.Tensor:
+    """Canonical packed k-mers (k <= 31) of every sequence in ``store``,
+    with repeats, as int64 on ``device`` (the host takes tens of seconds
+    for the flagship's outputs): each k-mer and its reverse complement
+    packed by k shifts over the concatenated codes, keeping the k-mers that
+    lie inside one sequence."""
+    codes = torch.from_numpy(store.codes).to(device, torch.int64)
+    n = max(0, len(codes) - k + 1)
+    fwd = torch.zeros(n, dtype=torch.int64, device=device)
+    rc = torch.zeros_like(fwd)
+    for j in range(k):
+        window = codes[j:j + n]
+        fwd |= window << (2 * (k - 1 - j))
+        rc |= (3 - window) << (2 * j)
+    offsets = torch.from_numpy(store.offsets).to(device, torch.int64)
+    start = torch.arange(n, device=device)
+    seq = torch.searchsorted(offsets, start, right=True) - 1
+    return torch.minimum(fwd, rc)[start + k <= offsets[seq + 1]]
 
-    packed = dna.pack_kmers_u64(store.codes, k)
-    start = np.arange(len(packed))
-    seq = np.searchsorted(store.offsets, start, side="right") - 1
-    inside = start + k <= store.offsets[seq + 1]
-    return np.unique(dna.canonical_packed_u64(packed[inside], k))
+
+def spelled_kmer_set(store, k: int, device) -> np.ndarray:
+    """Sorted unique canonical packed k-mers of every sequence in ``store``."""
+    return torch.unique(spelled_kmers(store, k, device)).cpu().numpy().astype(np.uint64)
+
+
+class LogCapture(logging.Handler):
+    """Records of one logger, kept while a ``with`` block runs at INFO level
+    and not passed on to the root's handlers."""
+
+    def __init__(self, name: str):
+        super().__init__(logging.INFO)
+        self.logger, self.records = logging.getLogger(name), []
+
+    def emit(self, record) -> None:
+        self.records.append(record)
+
+    def __enter__(self):
+        self.saved = self.logger.level, self.logger.propagate
+        self.logger.setLevel(logging.INFO)
+        self.logger.propagate = False
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.logger.removeHandler(self)
+        self.logger.setLevel(self.saved[0])
+        self.logger.propagate = self.saved[1]
+
+    def args(self, msg: str) -> list:
+        """The arguments of every record whose format string is ``msg``."""
+        return [r.args for r in self.records if r.msg == msg]
+
+
+def load_capi(path: Path) -> ctypes.CDLL:
+    """The port's C library with its five entry points typed."""
+    lib = ctypes.CDLL(str(path))
+    size, sizep = ctypes.c_size_t, ctypes.POINTER(ctypes.c_size_t)
+    lib.matchtigs_initialise.argtypes, lib.matchtigs_initialise.restype = [], None
+    lib.matchtigs_initialise_graph.argtypes = [size]
+    lib.matchtigs_initialise_graph.restype = ctypes.c_void_p
+    lib.matchtigs_merge_nodes.argtypes = [ctypes.c_void_p, size, ctypes.c_int, size,
+                                          ctypes.c_int]
+    lib.matchtigs_merge_nodes.restype = None
+    lib.matchtigs_build_graph.argtypes = [ctypes.c_void_p, sizep]
+    lib.matchtigs_build_graph.restype = None
+    lib.matchtigs_compute_tigs.argtypes = [
+        ctypes.c_void_p, size, size, size, ctypes.c_char_p, ctypes.c_char_p,
+        ctypes.POINTER(ctypes.c_int64), sizep, sizep,
+    ]
+    lib.matchtigs_compute_tigs.restype = size
+    return lib
 
 
 def main(argv=None) -> int:
@@ -384,13 +460,15 @@ def main(argv=None) -> int:
 
     # 2. Build
     from matchtigs_tpu_torch import native, testing
+    from matchtigs_tpu_torch.algos.matchtigs import MatchtigConfig, compute_matchtigs
+    from matchtigs_tpu_torch.capi import TigGraphBuilder
     from matchtigs_tpu_torch.algos.greedytigs import (
         GreedytigConfig, SearchStats, compute_greedytigs, split_device_sources,
     )
     from matchtigs_tpu_torch.cli import main as cli_main
     from matchtigs_tpu_torch.graph.build import build_bigraph_from_unitigs
     from matchtigs_tpu_torch.io.readers import read_fasta
-    from matchtigs_tpu_torch.io.writers import spell_walks_flat
+    from matchtigs_tpu_torch.io.writers import spell_walks_flat, write_walks_fasta
     from matchtigs_tpu_torch.algos.greedytigs import collect_candidates
     from matchtigs_tpu_torch.ops import mesh_sort, sssp
     from matchtigs_tpu_torch.ops.device_graph import build_device_graph
@@ -619,13 +697,13 @@ def main(argv=None) -> int:
     logging.getLogger("matchtigs_tpu_torch").setLevel(logging.WARNING)
     want_kmers = np.unique(kmers.astype(np.uint64))
 
-    def run_cli(fa_in, kk, *options):
-        """(rc, launches, seconds, out store) of one CLI run."""
+    def run_cli(fa_in, kk, *options, out_flag="--greedytigs-fa-out"):
+        """(rc, launches, seconds, out store) of one CLI run writing the
+        fasta of ``out_flag`` to out.fa beside ``fa_in``."""
         fa_out = Path(fa_in).with_name("out.fa")
         sssp.reset_kernel_launches()
         t = time.monotonic()
-        rc = cli_main(["--fa-in", str(fa_in), "-k", str(kk),
-                       "--greedytigs-fa-out", str(fa_out),
+        rc = cli_main(["--fa-in", str(fa_in), "-k", str(kk), out_flag, str(fa_out),
                        "--log-level", "Warning", *options])
         torch.cuda.synchronize()
         seconds = time.monotonic() - t
@@ -637,11 +715,10 @@ def main(argv=None) -> int:
         fa_in = Path(tmp) / "unitigs.fa.gz"
         write_fasta(fa_in, store)
         rc, launches, cli_s, out_store = run_cli(fa_in, k)
-        check(rc == 0 and launches == {"sssp_pool": 1, "sssp_wide": 0, "sssp_compact": 0,
-                                       "mesh_sort": 0, "mesh_merge_split": 0},
+        check(rc == 0 and launches == ONE_POOL_LAUNCH,
               f"CLI rc {rc}, kernel launches {launches}")
         cli_tigs, cli_len = len(out_store), int(out_store.offsets[-1])
-        got = spelled_kmer_set(out_store, k)
+        got = spelled_kmer_set(out_store, k, device)
         check(np.array_equal(got, want_kmers),
               f"CLI output spells {len(got)} k-mers, input has {len(want_kmers)}")
         phase("cli_device", seconds=time.monotonic() - t0, cli_s=cli_s,
@@ -700,7 +777,7 @@ def main(argv=None) -> int:
         )
         check(rc == 0, f"ladder CLI rc {rc}")
         n_tigs, n_len = len(out_store), int(out_store.offsets[-1])
-        got = spelled_kmer_set(out_store, k)
+        got = spelled_kmer_set(out_store, k, device)
         phase("cli_ladder", seconds=time.monotonic() - t0, cli_s=ladder_s,
               max_ball=max_ball, stage_capacities=capacities,
               stage_sources=stats.stage_sources,
@@ -713,7 +790,161 @@ def main(argv=None) -> int:
               f"ladder launches {launches} for {len(capacities)} stages")
         wide_launches = launches["sssp_wide"]
 
-    # 8. k=131 on a string-generated input: the unpacked layouts
+        # 8. Optimal matchtigs: the CLI with every matchtigs output, then
+        # library runs of the host and device engines
+        t0 = time.monotonic()
+        bv_out, prefix = Path(tmp) / "matchtigs.bv", Path(tmp) / "instance"
+        with LogCapture("matchtigs_tpu_torch.algos.matchtigs") as log:
+            rc, launches, mt_s, out_store = run_cli(
+                fa_in, k, "--matchtigs-duplication-bitvector-out", str(bv_out),
+                "--matching-file-prefix", str(prefix), out_flag="--matchtigs-fa-out")
+        check(rc == 0 and launches == ONE_POOL_LAUNCH,
+              f"matchtigs CLI rc {rc}, kernel launches {launches}")
+        mt_fasta = (Path(tmp) / "out.fa").read_bytes()
+        mt_tigs, mt_len = len(out_store), int(out_store.offsets[-1])
+        got = spelled_kmer_set(out_store, k, device)
+        laps = {a[0]: a[1] for a in log.args("%s: %.2fs")}
+        (n_ids,), (n_edges,), (matched,) = (log.args(msg)[0] for msg in (
+            "Matching instance has %d expanded nodes", "Collapsed to %d matching edges",
+            "Matched %d id pairs"))
+        instance = [f.open().readline().split() for f in (
+            Path(f"{prefix}.matching"), Path(f"{prefix}.matching.solution"))]
+        bv_lines = bv_out.read_bytes().split(b"\n")[:-1]
+        pool_launches += launches["sssp_pool"]
+        mt_runs = {}
+        for engine in ("host", "device"):
+            gg = g.copy()
+            t_run = time.monotonic()
+            tigs = compute_matchtigs(gg, MatchtigConfig(k=k, engine=engine))
+            torch.cuda.synchronize()
+            mt_runs[engine] = (tigs, time.monotonic() - t_run, gg)
+        h_mt, h_mt_s, h_g = mt_runs["host"]
+        _, h_off = spell_walks_flat(h_g, h_mt, store, k)
+        write_walks_fasta(h_g, h_mt, store, k, Path(tmp) / "host.fa")
+        same_fasta = (Path(tmp) / "host.fa").read_bytes() == mt_fasta
+        d_mt, d_mt_s, _ = mt_runs["device"]
+        same_walks = (np.array_equal(d_mt.flat, h_mt.flat)
+                      and np.array_equal(d_mt.offsets, h_mt.offsets))
+        phase("cli_matchtigs", seconds=time.monotonic() - t0, cli_s=mt_s,
+              candidates=log.args("Found %d candidate shortest paths")[0][0],
+              matching_ids=n_ids, matching_edges=n_edges,
+              matched_pairs=matched,
+              matching_s=laps["Matching"], laps_s=laps, launches=launches,
+              tigs=mt_tigs, cumulative_length=mt_len,
+              greedy_tigs=cli_tigs, greedy_cumulative_length=cli_len,
+              saving_over_greedy=cli_len - mt_len,
+              host_tigs=len(h_mt), host_len=int(h_off[-1]), library_host_s=h_mt_s,
+              library_device_s=d_mt_s, fasta_equal_host=same_fasta,
+              walks_equal_host=same_walks, kmer_set_equal=bool(np.array_equal(got, want_kmers)),
+              instance_header=instance[0], solution_header=instance[1],
+              bitvector_lines=len(bv_lines))
+        check(np.array_equal(got, want_kmers),
+              f"matchtigs CLI output spells {len(got)} k-mers, input has {len(want_kmers)}")
+        check(mt_len <= cli_len, f"matchtigs {mt_len} longer than greedytigs {cli_len}")
+        check((mt_tigs, mt_len) == (len(h_mt), int(h_off[-1])) and same_fasta and same_walks,
+              "matchtigs differ from the host engine's")
+        check(instance == [[str(n_ids), str(n_edges)], [str(n_ids), str(matched)]]
+              and len(bv_lines) == mt_tigs
+              and sum(line.count(b"1") for line in bv_lines) == len(want_kmers),
+              "matching files or duplication bitvector disagree with the run")
+        del mt_runs, h_mt, d_mt, h_g, out_store
+
+        # 9. Pathtigs and eulertigs: one CLI run, host-only
+        t0 = time.monotonic()
+        outs = {algo: Path(tmp) / f"{algo}.fa" for algo in ("pathtigs", "eulertigs")}
+        sssp.reset_kernel_launches()
+        t = time.monotonic()
+        rc = cli_main(["--fa-in", str(fa_in), "-k", str(k), "--log-level", "Warning",
+                       *(a for algo, path in outs.items()
+                         for a in (f"--{algo}-fa-out", str(path)))])
+        pe_s = time.monotonic() - t
+        launches = dict(sssp.KERNEL_LAUNCHES)
+        check(rc == 0 and not any(launches.values()),
+              f"pathtigs/eulertigs CLI rc {rc}, kernel launches {launches}")
+        pe = {}
+        for algo, path in outs.items():
+            out_store = read_fasta(path)[0]
+            spelled = spelled_kmers(out_store, k, device)
+            unique = torch.unique(spelled).cpu().numpy().astype(np.uint64)
+            pe[algo] = dict(tigs=len(out_store), cumulative_length=int(out_store.offsets[-1]),
+                            kmers=len(spelled),
+                            each_kmer_once=len(spelled) == len(unique)
+                            and bool(np.array_equal(unique, want_kmers)))
+        phase("cli_pathtigs_eulertigs", seconds=time.monotonic() - t0, cli_s=pe_s,
+              launches=launches, **pe)
+        check(all(r["each_kmer_once"] for r in pe.values()),
+              f"pathtigs/eulertigs do not spell every k-mer exactly once: {pe}")
+        check(pe["eulertigs"]["cumulative_length"] <= pe["pathtigs"]["cumulative_length"],
+              "eulertigs longer than pathtigs")
+
+        # 10. The C ABI: the port's C library over the flagship's topology,
+        # every algorithm id, against TigGraphBuilder with the host engine
+        t0 = time.monotonic()
+        lib_path = Path(tmp) / "libmatchtigs_tpu_torch.so"
+        native.build_capi(lib_path)
+        gcc_s = time.monotonic() - t0
+        lib = load_capi(lib_path)
+        lib.matchtigs_initialise()
+        merges = testing.capi_merges(g)
+        rows = list(zip(*(c.tolist() for c in merges)))
+        weights = np.ascontiguousarray(store.lengths + 1 - k, dtype=np.uint64)
+        n_uni = len(store)
+        t = time.monotonic()
+        ref = TigGraphBuilder(n_uni)
+        for row in rows:
+            ref.merge_nodes(*row)
+        ref_graph = ref.build_graph(weights)
+        ref_build_s = time.monotonic() - t
+        threads = os.cpu_count() or 1
+        capi = []
+        for algo in (1, 2, 3, 4, 5):
+            ref.graph = ref_graph.copy()
+            t = time.monotonic()
+            want = ref.compute_tigs(algo, k, threads, engine="host")
+            ref_s = time.monotonic() - t
+            t = time.monotonic()
+            h = lib.matchtigs_initialise_graph(n_uni)
+            check(h is not None, "matchtigs_initialise_graph failed")
+            for a, sa, b, sb in rows:
+                lib.matchtigs_merge_nodes(h, a, sa, b, sb)
+            lib.matchtigs_build_graph(h, weights.ctypes.data_as(ctypes.POINTER(ctypes.c_size_t)))
+            build_s = time.monotonic() - t
+            cap = 2 * len(want[0]) + 64  # the library writes without a bound
+            edges = np.zeros(cap, dtype=np.int64)
+            inserts = np.zeros(cap, dtype=np.uint64)
+            limits = np.zeros(cap, dtype=np.uint64)
+            sssp.reset_kernel_launches()
+            t = time.monotonic()
+            n_tigs = lib.matchtigs_compute_tigs(
+                h, algo, threads, k, b"", b"",
+                edges.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                inserts.ctypes.data_as(ctypes.POINTER(ctypes.c_size_t)),
+                limits.ctypes.data_as(ctypes.POINTER(ctypes.c_size_t)))
+            torch.cuda.synchronize()
+            compute_s = time.monotonic() - t
+            launches = dict(sssp.KERNEL_LAUNCHES)
+            total = int(limits[n_tigs - 1]) if n_tigs else 0
+            equal = (n_tigs == len(want[2]) and total == len(want[0])
+                     and np.array_equal(edges[:total], want[0])
+                     and np.array_equal(inserts[:total], want[1].astype(np.uint64))
+                     and np.array_equal(limits[:n_tigs], want[2].astype(np.uint64)))
+            r = dict(algo=algo, tigs=int(n_tigs), edges=total, build_s=build_s,
+                     compute_s=compute_s, reference_s=ref_s, launches=launches,
+                     equal_host=bool(equal))
+            phase("capi_case", **r)
+            capi.append(r)
+            check(equal and n_tigs > 0, f"C ABI id {algo} differs from compute_tigs: {r}")
+            check(launches == (ONE_POOL_LAUNCH if algo in (4, 5)
+                               else dict.fromkeys(ONE_POOL_LAUNCH, 0)),
+                  f"C ABI id {algo} kernel launches {launches}")
+            pool_launches += launches["sssp_pool"]
+        phase("capi_device", seconds=time.monotonic() - t0, gcc_s=gcc_s,
+              genome_length=args.genome_length, unitigs=n_uni, merges=len(rows),
+              reference_build_s=ref_build_s,
+              launches={c["algo"]: c["launches"]["sssp_pool"] for c in capi})
+        del ref, ref_graph, rows, merges
+
+    # 11. k=131 on a string-generated input: the unpacked layouts
     t0 = time.monotonic()
     kstore, kset, kk = testing.make_unitig_store_strings(
         genome_length=20000, k=131, seed=131, n_sequences=3
@@ -741,7 +972,7 @@ def main(argv=None) -> int:
           f"k=131 CLI: k-mer set equal {spelled == kset}, launches {launches}")
     wide_launches += launches["sssp_wide"]
 
-    # 9. The mesh's sort and merge-split kernel against their plain
+    # 12. The mesh's sort and merge-split kernel against their plain
     # versions: the flagship's acceptance keys, then edge cases
     t0 = time.monotonic()
     chunks = collect_candidates(g, out_nodes, in_mask, k, GreedytigConfig(k=k),
@@ -830,7 +1061,7 @@ def main(argv=None) -> int:
     check(sort_bad == 0 and merge_bad == 0,
           "the mesh sort kernel disagrees with its plain version")
 
-    # 10. The sharded search stage (K6) on 4 shards of the one card, both
+    # 13. The sharded search stage (K6) on 4 shards of the one card, both
     # schedules: the shards run one after another on the card's stream
     t0 = time.monotonic()
     shards = mesh_mod.make_mesh([device] * MESH_SHARDS)
@@ -871,7 +1102,7 @@ def main(argv=None) -> int:
         del stage, rows, one_rows
     phase("mesh_stage_done", seconds=time.monotonic() - t0)
 
-    # 11. The sharded acceptance sort (K7) on the same mesh, and the accept
+    # 14. The sharded acceptance sort (K7) on the same mesh, and the accept
     # scan over it against the host accept
     t0 = time.monotonic()
     sssp.reset_kernel_launches()
@@ -888,7 +1119,7 @@ def main(argv=None) -> int:
     check(sort_equal and accept_equal, "the mesh accept differs from the host accept")
     del chunks, sorted_keys, acc_mesh, acc_host
 
-    # 12. Two processes of one gloo group, both on the card, on the
+    # 15. Two processes of one gloo group, both on the card, on the
     # flagship cached above
     t0 = time.monotonic()
     workers = run_mesh_workers(args.genome_length)

@@ -51,8 +51,8 @@ class GreedytigConfig:
     # Device of the search stage: "cuda" (the current card; every visible
     # card as mesh shards), a named device such as "cuda:1", or "cpu" (the
     # kernels' plain torch versions).  A list names the mesh's shards; a
-    # device may repeat.  Never guessed: engine="device" without CUDA
-    # raises unless this names the CPU.
+    # device may repeat.  Never guessed: the device stage ("auto" or
+    # "device") without CUDA raises unless this names the CPU.
     device: str | torch.device | list = "cuda"
     # Shard the device stage and the acceptance sort over a mesh
     # (parallel/mesh.py): "auto" when it has more than one shard (devices
@@ -74,9 +74,10 @@ class GreedytigConfig:
     host_route_threshold: int = 1
     # Threads for the native host Dijkstra (None = all cores).
     host_threads: int | None = None
-    # Search engine: "auto" uses the device stage when a CUDA device is
-    # present and the native host Dijkstra otherwise; "device"/"host"
-    # force one side.
+    # Search engine: "auto" and "device" run the device stage on
+    # ``device`` (without CUDA it raises unless ``device`` names the CPU);
+    # "host" runs the native host Dijkstra alone.  "auto" never falls back
+    # to the host for want of a card.
     engine: str = "auto"
     # Opt-in per-source search counters (ball-size histogram, max/avg) —
     # the analog of the reference's --dijkstra-performance-data-type
@@ -190,12 +191,9 @@ def _host_search_fn(config: GreedytigConfig):
 
 
 def _use_host_engine(config: GreedytigConfig) -> bool:
-    """True when the search should skip the device stage entirely."""
-    if config.engine == "host":
-        return True
-    if config.engine == "device":
-        return False
-    return not torch.cuda.is_available()
+    """True when the search skips the device stage entirely: only when
+    the host engine is asked for."""
+    return config.engine == "host"
 
 
 def _stage_devices(config: GreedytigConfig) -> list[torch.device]:

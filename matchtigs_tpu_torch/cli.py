@@ -1,13 +1,16 @@
-# Ported from matchtigs_tpu/cli.py: the greedytigs flags and the shared input flags.
+# Ported from matchtigs_tpu/cli.py: every flag, and --device naming the device of the search stage.
 """Command line interface.
 
-Mirrors the reference CLI's flag surface (upstream src/bin.rs:56-218) for
-greedy matchtigs, with the same orchestration: load -> compute (on a
-fresh graph copy) -> write, with timing and memory logging
-(upstream src/bin.rs:850-1218).  The pathtigs, eulertigs and matchtigs
-outputs are not ported yet and are refused.
+Mirrors the reference CLI's flag surface (upstream src/bin.rs:56-218)
+with the same orchestration: load -> per-algorithm compute (pathtigs,
+eulertigs, greedytigs, matchtigs; on a fresh graph copy for the
+graph-mutating algorithms) -> write, with timing and memory logging
+(upstream src/bin.rs:850-1218).  Greedy and optimal matchtigs search on
+``--device`` (default: the CUDA card; ``cpu`` runs the kernels' plain
+torch versions); without a card they fail rather than fall back to the
+host.
 
-Run as ``python -m matchtigs_tpu_torch.cli``.
+Run as ``python -m matchtigs_tpu_torch.cli`` or the ``matchtigs-tpu-torch`` entry point.
 """
 
 from __future__ import annotations
@@ -18,7 +21,10 @@ import resource
 import sys
 import time
 
+from .algos.eulertigs import EulertigConfig, compute_eulertigs
 from .algos.greedytigs import GreedytigConfig, compute_greedytigs
+from .algos.matchtigs import MatchtigConfig, compute_matchtigs
+from .algos.pathtigs import compute_pathtigs
 from .graph.build import build_bigraph_from_links, build_bigraph_from_unitigs
 from .io.readers import load_unitigs
 from .io.writers import (
@@ -28,17 +34,6 @@ from .io.writers import (
 )
 
 logger = logging.getLogger("matchtigs_tpu_torch")
-
-# Output flags of the algorithms that are not ported yet (ROADMAP.md).
-_NOT_PORTED = [
-    f"--{algo}-{out}"
-    for algo in ("pathtigs", "eulertigs", "matchtigs")
-    for out in ("gfa-out", "fa-out")
-] + [
-    "--matchtigs-duplication-bitvector-out",
-    "--matching-dense-limit",
-    "--matching-file-prefix",
-]
 
 
 def _positive_int(text: str) -> int:
@@ -51,7 +46,7 @@ def _positive_int(text: str) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="matchtigs-tpu-torch",
-        description="Greedy matchtigs (PyTorch + CUDA): small plain text "
+        description="Matchtigs (PyTorch + CUDA): minimum plain text "
         "representation of kmer sets.",
     )
     p.add_argument("--gfa-in", help="GFA file containing the input unitigs (.gz ok)")
@@ -59,14 +54,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--bcalm-in", help="BCALM2 fasta file containing the input unitigs (.gz ok)"
     )
-    p.add_argument("--greedytigs-gfa-out", help="Compute greedytigs, write GFA (.gz ok)")
-    p.add_argument("--greedytigs-fa-out", help="Compute greedytigs, write fasta (.gz ok)")
+    for algo in ("pathtigs", "eulertigs", "greedytigs", "matchtigs"):
+        p.add_argument(f"--{algo}-gfa-out", help=f"Compute {algo}, write GFA (.gz ok)")
+        p.add_argument(f"--{algo}-fa-out", help=f"Compute {algo}, write fasta (.gz ok)")
     p.add_argument(
         "--greedytigs-duplication-bitvector-out",
         help="ASCII bitvector: 0 per duplicated kmer in the greedytigs",
     )
-    for flag in _NOT_PORTED:
-        p.add_argument(flag, help=argparse.SUPPRESS)
+    p.add_argument(
+        "--matchtigs-duplication-bitvector-out",
+        help="ASCII bitvector: 0 per duplicated kmer in the matchtigs",
+    )
     p.add_argument("-k", type=int, help="kmer size (required for fasta/bcalm input)")
     p.add_argument(
         "-t",
@@ -75,8 +73,9 @@ def build_parser() -> argparse.ArgumentParser:
         default=None,
         help="host threads for the native Dijkstra (default: all cores)",
     )
-    # The SSSP knobs default to None and are filled from GreedytigConfig
-    # at dispatch time, so the CLI never shadows the dataclass defaults.
+    # The SSSP knobs default to None and are filled from GreedytigConfig /
+    # MatchtigConfig at dispatch time, so the CLI never shadows the
+    # dataclass defaults.
     p.add_argument(
         "--sssp-initial-capacity",
         type=_positive_int,
@@ -114,11 +113,25 @@ def build_parser() -> argparse.ArgumentParser:
         "one (every visible card under cuda), true even with one",
     )
     p.add_argument(
+        "--matching-dense-limit",
+        type=int,
+        default=None,
+        help="largest candidate component solved with the dense exact blossom "
+        "(bigger ones use the sparse exact solver)",
+    )
+    p.add_argument(
+        "--matching-file-prefix",
+        help="write the matchtigs matching instance/solution to "
+        "<prefix>.matching[.solution] (durable intermediate, analog of the "
+        "reference's .minimalperfectmatching files)",
+    )
+    p.add_argument(
         "--device",
         default="cuda",
-        help="device of the search stage: cuda (the card; every visible "
-        "card under --use-mesh), cuda:N, or cpu (the kernels' plain "
-        "versions; for tests)",
+        help="device of the greedytigs and matchtigs search stage: cuda "
+        "(the card; every visible card under --use-mesh), cuda:N, or cpu "
+        "(the kernels' plain versions). Without a card the default fails; "
+        "the search never falls back to the host for want of one",
     )
     p.add_argument(
         "--debug-print-graph",
@@ -227,14 +240,7 @@ def _log_mem(label: str) -> None:
 
 
 def main(argv: list[str] | None = None) -> int:
-    parser = build_parser()
-    opts = parser.parse_args(argv)
-    for flag in _NOT_PORTED:
-        if getattr(opts, flag[2:].replace("-", "_")) is not None:
-            parser.error(
-                f"{flag} is not yet ported to matchtigs_tpu_torch "
-                "(see ROADMAP.md); use matchtigs_tpu.cli"
-            )
+    opts = build_parser().parse_args(argv)
     logging.basicConfig(
         level=getattr(logging, opts.log_level.upper(), logging.INFO),
         format="%(asctime)s %(levelname)s [%(name)s] %(message)s",
@@ -261,13 +267,16 @@ def main(argv: list[str] | None = None) -> int:
     _log_mem("After load")
 
     # Pre-fault the working-set arena in one bulk syscall: the candidate
-    # columns and sort keys of the greedy search scale with the candidate
-    # count (~3.3 per edge at k=31, 24 B + 8 B key each, x2 for scratch),
-    # and lazy first-touch faults are slow on oversubscribed virtualized
-    # hosts.  The target is capped by available memory so the prewarm never
-    # thrashes a host the real working set would have fit on.
+    # columns and sort keys of the greedy and optimal matchtig search scale
+    # with the candidate count (~3.3 per edge at k=31, 24 B + 8 B key each,
+    # x2 for scratch), and lazy first-touch faults are slow on
+    # oversubscribed virtualized hosts.  Only the candidate-building
+    # algorithms need it, and the target is capped by available memory so
+    # the prewarm never thrashes a host the real working set would have fit
+    # on.
     wants_search = any(
-        getattr(opts, f"greedytigs_{out}") is not None
+        getattr(opts, f"{algo}_{out}") is not None
+        for algo in ("greedytigs", "matchtigs")
         for out in ("fa_out", "gfa_out", "duplication_bitvector_out")
     )
     if wants_search:
@@ -288,8 +297,8 @@ def main(argv: list[str] | None = None) -> int:
         )
     if opts.blossom5_command:
         logger.info(
-            "--blossom5-command is accepted for compatibility; greedy "
-            "matchtigs run no matching solver"
+            "--blossom5-command is accepted for compatibility; the matching "
+            "runs with the built-in native blossom solver"
         )
     if opts.dijkstra_staged_parallelism_divisor or opts.dijkstra_resource_limit_factor:
         logger.info(
@@ -307,66 +316,103 @@ def main(argv: list[str] | None = None) -> int:
                 f"{store.get_ascii(int(graph.handles()[e]), bool(graph.forwards()[e])).decode()}"
             )
 
-    fa_out = opts.greedytigs_fa_out
-    gfa_out = opts.greedytigs_gfa_out
-    bv_out = opts.greedytigs_duplication_bitvector_out
-    if not (fa_out or gfa_out or bv_out):
+    requested = []
+    if opts.pathtigs_fa_out or opts.pathtigs_gfa_out:
+        requested.append("pathtigs")
+    if opts.eulertigs_fa_out or opts.eulertigs_gfa_out:
+        requested.append("eulertigs")
+    if (
+        opts.greedytigs_fa_out
+        or opts.greedytigs_gfa_out
+        or opts.greedytigs_duplication_bitvector_out
+    ):
+        requested.append("greedytigs")
+    if (
+        opts.matchtigs_fa_out
+        or opts.matchtigs_gfa_out
+        or opts.matchtigs_duplication_bitvector_out
+    ):
+        requested.append("matchtigs")
+    if not requested:
         logger.warning("No outputs requested; nothing to do")
         return 0
 
-    logger.info("Computing greedytigs")
-    g = graph.copy()
-    t0 = time.monotonic()
-    tigs = compute_greedytigs(
-        g,
-        GreedytigConfig(
-            k=k,
-            **_sssp_overrides(opts),
-            host_threads=opts.threads,
-            overflow_mode=opts.sssp_overflow_mode,
-            host_route_threshold=opts.host_route_threshold,
-            use_mesh={"auto": "auto", "true": True, "false": False}[
-                opts.use_mesh
-            ],
-            device=opts.device,
-            performance_counters=_want_counters(opts),
-            host_strategy=_host_strategy(opts),
-        ),
-    )
-    compute_time = time.monotonic() - t0
+    times: dict[str, tuple[float, float]] = {}
+    for algo in requested:
+        logger.info("Computing %s", algo)
+        g = graph if algo == "pathtigs" else graph.copy()
+        t0 = time.monotonic()
+        if algo == "pathtigs":
+            tigs = compute_pathtigs(g)
+        elif algo == "eulertigs":
+            tigs = compute_eulertigs(g, EulertigConfig(k=k))
+        elif algo == "greedytigs":
+            tigs = compute_greedytigs(
+                g,
+                GreedytigConfig(
+                    k=k,
+                    **_sssp_overrides(opts),
+                    host_threads=opts.threads,
+                    overflow_mode=opts.sssp_overflow_mode,
+                    host_route_threshold=opts.host_route_threshold,
+                    use_mesh={"auto": "auto", "true": True, "false": False}[
+                        opts.use_mesh
+                    ],
+                    device=opts.device,
+                    performance_counters=_want_counters(opts),
+                    host_strategy=_host_strategy(opts),
+                ),
+            )
+        else:
+            tigs = compute_matchtigs(
+                g,
+                MatchtigConfig(
+                    k=k,
+                    **_sssp_overrides(opts),
+                    host_threads=opts.threads,
+                    dense_limit=opts.matching_dense_limit,
+                    matching_file_prefix=opts.matching_file_prefix,
+                    device=opts.device,
+                    performance_counters=_want_counters(opts),
+                    host_strategy=_host_strategy(opts),
+                ),
+            )
+        compute_time = time.monotonic() - t0
 
-    t0 = time.monotonic()
-    debug_path = (
-        f"{opts.debug_spell_prefix}.greedytigs.spell"
-        if opts.debug_spell_prefix
-        else None
-    )
-    if fa_out:
-        logger.info("Writing greedytigs as fasta to %s", fa_out)
-        write_walks_fasta(
-            g, tigs, store, k, fa_out, opts.compression_level,
-            debug_path=debug_path,
+        t0 = time.monotonic()
+        fa_out = getattr(opts, f"{algo}_fa_out")
+        gfa_out = getattr(opts, f"{algo}_gfa_out")
+        debug_path = (
+            f"{opts.debug_spell_prefix}.{algo}.spell"
+            if opts.debug_spell_prefix
+            else None
         )
-        debug_path = None  # one debug file per algorithm
-    if gfa_out:
-        logger.info("Writing greedytigs as gfa to %s", gfa_out)
-        write_walks_gfa(
-            g, tigs, store, k, gfa_header, gfa_out, opts.compression_level,
-            debug_path=debug_path,
-        )
-    if bv_out:
-        logger.info("Writing greedytigs duplication bitvector to %s", bv_out)
-        write_duplication_bitvector(g, tigs, bv_out, opts.compression_level)
-    if opts.debug_print_walks:
-        for walk in tigs:
-            print(", ".join(str(int(e)) for e in walk))
-    write_time = time.monotonic() - t0
-    _log_mem("After greedytigs")
+        if fa_out:
+            logger.info("Writing %s as fasta to %s", algo, fa_out)
+            write_walks_fasta(
+                g, tigs, store, k, fa_out, opts.compression_level,
+                debug_path=debug_path,
+            )
+            debug_path = None  # one debug file per algorithm
+        if gfa_out:
+            logger.info("Writing %s as gfa to %s", algo, gfa_out)
+            write_walks_gfa(
+                g, tigs, store, k, gfa_header, gfa_out, opts.compression_level,
+                debug_path=debug_path,
+            )
+        bv_out = getattr(opts, f"{algo}_duplication_bitvector_out", None)
+        if bv_out:
+            logger.info("Writing %s duplication bitvector to %s", algo, bv_out)
+            write_duplication_bitvector(g, tigs, bv_out, opts.compression_level)
+        if opts.debug_print_walks:
+            for walk in tigs:
+                print(", ".join(str(int(e)) for e in walk))
+        write_time = time.monotonic() - t0
+        times[algo] = (compute_time, write_time)
+        _log_mem(f"After {algo}")
 
-    logger.info(
-        "Computing greedytigs took %.1fs and writing took %.1fs",
-        compute_time, write_time,
-    )
+    for algo, (ct, wt) in times.items():
+        logger.info("Computing %s took %.1fs and writing took %.1fs", algo, ct, wt)
     _log_mem("Final")
     logger.info("Done")
     return 0

@@ -1,4 +1,4 @@
-# Copied from matchtigs_tpu/native/__init__.py.
+# Copied from matchtigs_tpu/native/__init__.py; adds build_capi, the build of the port's C ABI.
 """Native (C++) runtime components, loaded via ctypes.
 
 The reference offloads min-cost perfect matching to an external C++ binary
@@ -29,6 +29,32 @@ _SOURCES = [
 
 _lib: ctypes.CDLL | None = None
 _load_error: Exception | None = None
+
+
+_CAPI_SRC = Path(__file__).resolve().parent / "capi_embed.c"
+
+
+def build_capi(out) -> Path:
+    """Build the port's C ABI (``capi_embed.c``) into the shared library
+    ``out`` with gcc, against this interpreter's headers and libpython (the
+    flags ``python3-config --includes --ldflags --embed`` gives).  A C host
+    links it; a Python process may also load it with ctypes, and the
+    library then joins the running interpreter.  Raises RuntimeError with
+    the compiler's message when the build fails."""
+    import sysconfig
+
+    var = sysconfig.get_config_var
+    out = Path(out)
+    cmd = [
+        "gcc", "-shared", "-fPIC", "-O2", str(_CAPI_SRC),
+        "-I" + sysconfig.get_paths()["include"], "-o", str(out),
+        f"-L{var('LIBDIR')}", f"-lpython{var('VERSION')}{var('ABIFLAGS') or ''}",
+        *(var("LIBS") or "").split(), *(var("SYSLIBS") or "").split(),
+    ]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"C ABI build failed: {proc.stderr[-2000:]}")
+    return out
 
 
 def _src_hash() -> str:

@@ -1,4 +1,4 @@
-# Copied from matchtigs_tpu/testing.py; adds assert_tigs_spell_kmer_strings for k > 63 and ball_graph (stage graphs with a ball of a given size), and unitigs_from_kmers runs its lookups in threads (same output).
+# Copied from matchtigs_tpu/testing.py; adds assert_tigs_spell_kmer_strings for k > 63, ball_graph (stage graphs with a ball of a given size) and capi_merges (a graph's topology as C ABI merge calls), and unitigs_from_kmers runs its lookups in threads (same output).
 """Synthetic data generation and oracle checks.
 
 The reference repo ships no fixtures; its real test oracle is k-mer-set
@@ -423,6 +423,28 @@ def ball_graph(ball: int, fanout: int) -> tuple[int, np.ndarray, np.ndarray, int
     for j in (ball, ball + 1):
         nbr[j, 0], nw[j, 0] = j + 1, 1
     return n, nbr, nw, int(dist.max())
+
+
+def capi_merges(g) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """The topology of ``g`` as ``TigGraphBuilder.merge_nodes`` calls:
+    columns (unitig_a, strand_a, unitig_b, strand_b), one row per in-edge x
+    out-edge pair at each node v with v <= mirror(v) (the pairs at mirror(v)
+    are their mirrors, which each call merges too), nodes ascending, then
+    in-edges, then out-edges in CSR order."""
+    out_off, out_edges, in_off, in_edges = g.csr()
+    nodes = np.flatnonzero(np.arange(g.n_nodes) <= g.mirror_node)
+    n_in = (in_off[nodes + 1] - in_off[nodes]).astype(np.int64)
+    n_out = (out_off[nodes + 1] - out_off[nodes]).astype(np.int64)
+    count = n_in * n_out
+    row_node = np.repeat(np.arange(len(nodes)), count)
+    local = np.arange(int(count.sum()), dtype=np.int64) - np.repeat(
+        np.cumsum(count) - count, count
+    )
+    i, o = np.divmod(local, np.maximum(n_out, 1)[row_node])
+    ei = in_edges[in_off[nodes][row_node] + i]
+    eo = out_edges[out_off[nodes][row_node] + o]
+    handles, forwards = np.asarray(g.handles()), np.asarray(g.forwards())
+    return handles[ei], forwards[ei], handles[eo], forwards[eo]
 
 
 def make_unitig_store(

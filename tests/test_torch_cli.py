@@ -1,5 +1,5 @@
 """The port's CLI against the JAX package's on tests/test_cli.py's fixture:
-byte-identical greedytigs outputs."""
+byte-identical outputs of every algorithm (the port on ``--device cpu``)."""
 
 import gzip
 
@@ -34,9 +34,10 @@ def test_cli_output_byte_identical_to_jax(unitig_fa, tmp_path, flag, name):
     outs = []
     for side, main in (("jax", j_main), ("torch", t_main)):
         out = tmp_path / f"{side}_{name}"
+        device = ["--device", "cpu"] if side == "torch" else []
         rc = main(
             ["--fa-in", str(path), "-k", str(k), flag, str(out),
-             "--log-level", "Warning"]
+             "--log-level", "Warning", *device]
         )
         assert rc == 0
         data = out.read_bytes()
@@ -82,13 +83,49 @@ def test_cli_refuses_capacity_below_one(unitig_fa, tmp_path, capsys):
 
 
 @pytest.mark.parametrize(
-    "flag", ["--eulertigs-fa-out", "--pathtigs-gfa-out", "--matchtigs-fa-out"]
+    "flag",
+    ["--eulertigs-fa-out", "--pathtigs-gfa-out", "--matchtigs-fa-out",
+     "--matchtigs-duplication-bitvector-out", "--matching-file-prefix"],
 )
-def test_cli_refuses_unported_algorithms(unitig_fa, tmp_path, flag, capsys):
+def test_cli_algorithm_byte_identical_to_jax(unitig_fa, tmp_path, flag):
+    """Both CLIs write the same bytes for each algorithm's outputs; the
+    matching prefix writes the instance and its solution (beside a
+    matchtigs fasta)."""
     path, k = unitig_fa
-    with pytest.raises(SystemExit):
-        t_main(["--fa-in", str(path), "-k", str(k), flag, str(tmp_path / "x")])
-    assert "not yet ported" in capsys.readouterr().err
+    outs = []
+    for side, main in (("jax", j_main), ("torch", t_main)):
+        out = tmp_path / f"{side}.out"
+        options = [flag, str(out)]
+        if flag == "--matching-file-prefix":
+            options += ["--matchtigs-fa-out", str(tmp_path / f"{side}.fa")]
+            files = [tmp_path / f"{side}.out.matching",
+                     tmp_path / f"{side}.out.matching.solution"]
+        else:
+            files = [out]
+        device = ["--device", "cpu"] if side == "torch" else []
+        rc = main(["--fa-in", str(path), "-k", str(k), *options,
+                   "--log-level", "Warning", *device])
+        assert rc == 0
+        outs.append([f.read_bytes() for f in files])
+    assert outs[0] == outs[1] and all(len(o) > 0 for o in outs[0])
+
+
+@pytest.mark.parametrize(
+    "flag", ["--greedytigs-fa-out", "--matchtigs-fa-out",
+             "--matchtigs-duplication-bitvector-out"],
+)
+def test_cli_without_a_card_fails_instead_of_the_host(unitig_fa, tmp_path, monkeypatch, flag):
+    """Without --device the search stage is the card's: with no CUDA device
+    the run fails and writes nothing, it never runs on the CPU."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path, k = unitig_fa
+    out = tmp_path / "x"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_main(["--fa-in", str(path), "-k", str(k), flag, str(out),
+                "--log-level", "Warning"])
+    assert not out.exists()
 
 
 def test_cli_accepts_sssp_batch_size_as_a_no_op(unitig_fa, tmp_path, caplog):
@@ -100,7 +137,7 @@ def test_cli_accepts_sssp_batch_size_as_a_no_op(unitig_fa, tmp_path, caplog):
         out = tmp_path / f"g{len(options)}.fa"
         caplog.clear()
         with caplog.at_level("INFO", logger="matchtigs_tpu_torch"):
-            rc = t_main(["--fa-in", str(path), "-k", str(k),
+            rc = t_main(["--fa-in", str(path), "-k", str(k), "--device", "cpu",
                          "--greedytigs-fa-out", str(out), *options])
         assert rc == 0
         noted = [r.getMessage() for r in caplog.records if "--sssp-batch-size" in r.getMessage()]
@@ -120,5 +157,5 @@ def test_cli_tunes_malloc_once(unitig_fa, tmp_path, monkeypatch):
     monkeypatch.setattr(malloc_tuning, "tune_malloc", lambda: calls.append(1) or True)
     path, k = unitig_fa
     rc = t_main(["--fa-in", str(path), "-k", str(k), "--greedytigs-fa-out",
-                 str(tmp_path / "g.fa"), "--log-level", "Warning"])
+                 str(tmp_path / "g.fa"), "--log-level", "Warning", "--device", "cpu"])
     assert rc == 0 and calls == [1]

@@ -1,5 +1,5 @@
 """The CUDA kernels of the port on the card: each against its plain torch
-version, and on the greedy main path.
+version, and on the greedy and optimal matchtigs paths.
 
 These tests import only the port, so they also run where JAX is absent
 (``tests/conftest.py`` imports jax; skip it there):
@@ -19,6 +19,7 @@ from matchtigs_tpu_torch.algos.greedytigs import (
     SearchStats,
     compute_greedytigs,
 )
+from matchtigs_tpu_torch.algos.matchtigs import MatchtigConfig, compute_matchtigs
 from matchtigs_tpu_torch.graph.build import build_bigraph_from_unitigs
 from matchtigs_tpu_torch.interop import device_graph_from_numpy
 from matchtigs_tpu_torch.ops import mesh_sort, sssp
@@ -396,6 +397,25 @@ def test_device_engine_runs_the_kernel(cuda_device):
         assert np.array_equal(got.flat, want.flat), option
         assert np.array_equal(got.offsets, want.offsets), option
         testing.assert_tigs_spell_kmer_set(gg, got, store, k, kmers, allow_duplicates=True)
+
+
+def test_matchtigs_run_the_kernel_once(cuda_device):
+    """Optimal matchtigs on the card, by default: one launch of the register
+    kernel, and the host engine's walks."""
+    store, kmers, k = testing.make_pangenome_store(
+        genome_length=20000, k=13, n_strains=4, mutation_rate=0.02, seed=11,
+        with_repeats=True,
+    )
+    g = build_bigraph_from_unitigs(store, k)
+    want = compute_matchtigs(g.copy(), MatchtigConfig(k=k, engine="host"))
+    sssp.reset_kernel_launches()
+    gg = g.copy()
+    got = compute_matchtigs(gg, MatchtigConfig(k=k))
+    assert dict(sssp.KERNEL_LAUNCHES) == {"sssp_pool": 1, "sssp_wide": 0, "sssp_compact": 0,
+                                          "mesh_sort": 0, "mesh_merge_split": 0}
+    assert np.array_equal(got.flat, want.flat)
+    assert np.array_equal(got.offsets, want.offsets)
+    testing.assert_tigs_spell_kmer_set(gg, got, store, k, kmers, allow_duplicates=True)
 
 
 def test_k131_runs_the_wide_kernel(cuda_device):

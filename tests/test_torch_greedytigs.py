@@ -202,9 +202,25 @@ def test_device_engine_without_cuda_raises(monkeypatch, option):
         t_greedy(g.copy(), TConfig(k=k, engine="device", **option))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_greedy(g.copy(), TConfig(k=k, engine="device", device="cuda:0", **option))
-    host = t_greedy(g.copy(), TConfig(k=k, **option))  # "auto": the host engine
+    host = t_greedy(g.copy(), TConfig(k=k, engine="host", **option))
     got = t_greedy(g.copy(), TConfig(k=k, engine="device", device="cpu", **option))
     assert np.array_equal(got.flat, host.flat)
+
+
+@pytest.mark.parametrize("option", [dict(), dict(use_mesh=True)], ids=["one", "mesh"])
+def test_auto_engine_without_cuda_raises(monkeypatch, option):
+    """engine="auto", the default, is the device stage on config.device: it
+    never runs the host search for want of a card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    store, _, k = ttesting.make_unitig_store(genome_length=3000, k=9, seed=0)
+    g = t_build(store, k)
+    assert TConfig(k=k).engine == "auto"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_greedy(g.copy(), TConfig(k=k, **option))
+    stats = SearchStats()
+    got = t_greedy(g.copy(), TConfig(k=k, device="cpu", **option), stats)
+    want = t_greedy(g.copy(), TConfig(k=k, engine="host"))
+    assert stats.stage_times and np.array_equal(got.flat, want.flat)
 
 
 def test_config_rejects_unknown_modes():

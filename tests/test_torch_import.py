@@ -17,7 +17,20 @@ store, kmers, k = testing.make_unitig_store(genome_length=3000, k=9, seed=0)
 g = mt.build_bigraph_from_unitigs(store, k)
 tigs = mt.compute_greedytigs(g, mt.GreedytigConfig(k=k, engine="host"))
 testing.assert_tigs_spell_kmer_set(g, tigs, store, k, kmers, allow_duplicates=True)
+g = mt.build_bigraph_from_unitigs(store, k)
+tigs = mt.compute_matchtigs(g, mt.MatchtigConfig(k=k, engine="host"))
+testing.assert_tigs_spell_kmer_set(g, tigs, store, k, kmers, allow_duplicates=True)
+g = mt.build_bigraph_from_unitigs(store, k)
+testing.assert_tigs_spell_kmer_set(g, mt.compute_pathtigs(g), store, k, kmers, allow_duplicates=False)
+tigs = mt.compute_eulertigs(g, mt.EulertigConfig(k=k))
+testing.assert_tigs_spell_kmer_set(g, tigs, store, k, kmers, allow_duplicates=False)
+b = mt.TigGraphBuilder(len(store))
+for row in zip(*(c.tolist() for c in testing.capi_merges(g))):
+    b.merge_nodes(*row)
+b.build_graph(store.lengths + 1 - k)
+assert b.compute_tigs(5, k, engine="host")[2][-1] > 0
 import matchtigs_tpu_torch.cli
+import matchtigs_tpu_torch.ops.perfect_matching
 from matchtigs_tpu_torch.utils import malloc_tuning
 assert malloc_tuning.tune_malloc() and malloc_tuning.prewarm_heap(1 << 20) in (True, False)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "matchtigs_tpu"))
@@ -27,6 +40,7 @@ assert not bad, bad
 
 
 def test_host_greedy_run_imports_no_jax():
+    """Every front on the host engine, the C ABI's builder and the CLI."""
     env = dict(os.environ, PYTHONPATH=str(PKG.parent))
     proc = subprocess.run(
         [sys.executable, "-c", _HOST_RUN],
