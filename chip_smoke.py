@@ -4,8 +4,12 @@ Drives the port's main paths, greedy and optimal matchtigs, through its
 CLI on the repository's flagship dataset (synthetic 10 Mbp pangenome, 7
 strains, 1% mutations, repeats, k=31), then pathtigs and eulertigs and the
 C ABI, after building every kernel from the sources in the checkout and
-holding each against its plain PyTorch version:
+holding each against its plain PyTorch version; then greedy matchtigs on
+the 60 Mbp pangenome:
 
+- ``dataset``: the flagship made on the card
+  (``testing.make_pangenome_store(device=...)``) into this run's own
+  cache, held to the JAX generator's sha256 and counts;
 - ``kernel_vs_plain`` / ``kernel_main_shape``: the register kernel
   (``csrc/sssp_pool.cu``) on two graphs and on all flagship device sources
   (one device operation, checked; registers and spilled bytes per
@@ -46,12 +50,21 @@ holding each against its plain PyTorch version:
   scan over it against the host accept;
 - ``mesh_two_process``: two processes of one gloo group, both on the card,
   run greedy matchtigs with ``use_mesh=True`` (this script with
-  ``--mesh-worker``); walks equal in both and to the host engine's.
+  ``--mesh-worker``); walks equal in both and to the host engine's;
+- ``dataset_60m``: the 60 Mbp pangenome of ``bench.py`` made on the card
+  (10.2 M nodes), held to the counts of BASELINE.md and to its sha256,
+  with its peak device and host memory;
+- ``cli_device_60m``: the default greedytigs CLI on it (one register-kernel
+  launch), its fasta equal to the host engine's walks and spelling the
+  input k-mer set, and the register kernel at that shape against its plain
+  version; ``cli_matchtigs_60m``: the optimal-matchtigs CLI on it (one
+  register-kernel launch), exact k-mer set, no longer than greedy's.
 
 Each kernel's ``launches`` in the kernels line is read from path runs
 with the counts set to 0 just before each: ``sssp_pool`` from
-``cli_device``, ``cli_matchtigs``, ``capi_device``, ``mesh_stage`` and
-``mesh_two_process``, ``sssp_wide`` from
+``cli_device``, ``cli_matchtigs``, ``capi_device``, ``mesh_stage``,
+``mesh_two_process``, ``cli_device_60m`` and ``cli_matchtigs_60m``,
+``sssp_wide`` from
 ``cli_ladder`` and ``cli_k131``, ``sssp_compact`` from the compact dispatch
 of ``compact_vs_full``, ``mesh_sort`` and ``mesh_merge_split`` from
 ``mesh_two_process``.  Each kernel's ``bound_ms`` is the larger of its
@@ -79,10 +92,12 @@ from __future__ import annotations
 import argparse
 import ctypes
 import gzip
+import hashlib
 import json
 import logging
 import math
 import os
+import resource
 import socket
 import subprocess
 import sys
@@ -94,11 +109,26 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-DATA_CACHE = ROOT / ".bench_data"
 K = 31
 N_STRAINS = 7
 MUTATION_RATE = 0.01
 SEED = 0
+FLAGSHIP_LENGTH = 10_000_000
+# sha256 over (codes uint8, offsets int64, k-mers uint64) of the flagship as
+# the JAX package's numpy generator makes it (matchtigs_tpu.testing), and its
+# counts (PERF.md section 4)
+FLAGSHIP_SHA256 = "4c25c928c2f744defbac93545830ec5ba7469e269c37ce51271dff0444bb0f80"
+FLAGSHIP_COUNTS = dict(unitigs=1_318_008, kmers=25_161_366, nodes=1_724_514,
+                       sources=836_785, device_sources=753_819)
+# the 60 Mbp pangenome of bench.py:63-69 (7 strains, 1% mutations, repeats,
+# k=31, seed 0), its counts in BASELINE.md:156-158, and the sha256 of the
+# torch generator's output on the card, whose counts are those (the JAX
+# generator's digest at this size was not computed: it needs tens of GiB of
+# host memory and about an hour)
+SCALE60M_LENGTH = 60_000_000
+SCALE60M_COUNTS = dict(unitigs=7_843_250, kmers=150_495_678, nodes=10_238_350,
+                       sources=4_966_834)
+SCALE60M_SHA256 = "c6b2b3eb29a5f89ca51ddaf5272efe8050a94672ddf8147a4cdf1bf4b2fc84e2"
 CAPACITY = 4  # the GreedytigConfig default
 N_FLAGSHIP_CHECK = 20_000  # flagship sources held against the plain version
 POOL_CAPACITY_CASES = (16, 64)  # pool_sssp capacities timed on the C=4 overflow
@@ -350,6 +380,40 @@ def compare(sssp, dg, sources: np.ndarray, max_weight: int, capacity: int,
     )
 
 
+def dataset_digest(store, kmers: np.ndarray) -> str:
+    """sha256 over a dataset's codes (uint8), base offsets (int64) and
+    k-mers (uint64), in that order."""
+    h = hashlib.sha256()
+    for a, dtype in ((store.codes, np.uint8), (store.offsets, np.int64), (kmers, np.uint64)):
+        h.update(np.ascontiguousarray(a, dtype=dtype))
+    return h.hexdigest()
+
+
+def peak_rss_gib() -> float:
+    """This process's peak resident memory so far (GiB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def pool_reading(sssp, adj, src, max_weight: int, deg: int) -> tuple:
+    """The register kernel at C=CAPACITY on ``src``: (rows, flags, fields),
+    the fields being its event, device and host-enqueue times, the plain
+    version's time on the card and the mismatches against it, the overflow
+    share and the bound."""
+    def run():
+        return sssp.pool_sssp(adj, src, max_weight, CAPACITY)
+    fields = dict(sources=len(src), capacity=CAPACITY, kernel_ms=kernel_ms(run))
+    key, over = run()
+    want, fields["plain_on_gpu_ms"] = plain_ms(
+        lambda: sssp.pool_sssp_plain(adj, src, max_weight, CAPACITY))
+    fields["bound_ms"], fields["bound_by"] = search_bound(adj, src, key, over, deg)
+    device, breakdown, ops = device_ms(run)
+    fields.update(kernel_device_ms=device, kernel_device_breakdown_ms=breakdown,
+                  kernel_device_ops=len(ops), host_enqueue_ms=host_ms(run),
+                  overflow_frac=float(over.float().mean()),
+                  **row_mismatches((key, None, over), want))
+    return key, over, fields
+
+
 def check(ok: bool, message: str) -> None:
     if not ok:
         raise SystemExit(message)
@@ -369,21 +433,15 @@ def write_fasta(path: Path, store) -> None:
 def spelled_kmers(store, k: int, device) -> torch.Tensor:
     """Canonical packed k-mers (k <= 31) of every sequence in ``store``,
     with repeats, as int64 on ``device`` (the host takes tens of seconds
-    for the flagship's outputs): each k-mer and its reverse complement
-    packed by k shifts over the concatenated codes, keeping the k-mers that
+    for the flagship's outputs): the windows of the concatenated codes that
     lie inside one sequence."""
-    codes = torch.from_numpy(store.codes).to(device, torch.int64)
-    n = max(0, len(codes) - k + 1)
-    fwd = torch.zeros(n, dtype=torch.int64, device=device)
-    rc = torch.zeros_like(fwd)
-    for j in range(k):
-        window = codes[j:j + n]
-        fwd |= window << (2 * (k - 1 - j))
-        rc |= (3 - window) << (2 * j)
+    from matchtigs_tpu_torch.testing import canonical_kmers_torch
+
+    kmers = canonical_kmers_torch(torch.from_numpy(store.codes).to(device), k)
     offsets = torch.from_numpy(store.offsets).to(device, torch.int64)
-    start = torch.arange(n, device=device)
+    start = torch.arange(len(kmers), device=device)
     seq = torch.searchsorted(offsets, start, right=True) - 1
-    return torch.minimum(fwd, rc)[start + k <= offsets[seq + 1]]
+    return kmers[start + k <= offsets[seq + 1]]
 
 
 def spelled_kmer_set(store, k: int, device) -> np.ndarray:
@@ -441,12 +499,23 @@ def load_capi(path: Path) -> ctypes.CDLL:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--genome-length", type=int, default=10_000_000)
+    ap.add_argument("--genome-length", type=int, default=FLAGSHIP_LENGTH)
     ap.add_argument("--mesh-worker", nargs=4, metavar=("RANK", "WORLD", "PORT", "OUT"),
                     help="run one process of the mesh_two_process phase")
+    ap.add_argument("--data-dir", help="the mesh worker's dataset cache")
     args = ap.parse_args(argv)
     if args.mesh_worker:
-        return mesh_worker(*args.mesh_worker, genome_length=args.genome_length)
+        return mesh_worker(*args.mesh_worker, genome_length=args.genome_length,
+                           data_dir=args.data_dir)
+    # a fresh cache per run: the flagship is generated (and timed) here, and
+    # the mesh workers load what this run wrote
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as data_dir:
+        return smoke(args, Path(data_dir))
+
+
+def smoke(args, data_dir: Path) -> int:
+    """Every phase of the module docstring, in order (0 on success; a
+    failed check exits)."""
     t_start = time.monotonic()
 
     # 1. Device
@@ -463,7 +532,7 @@ def main(argv=None) -> int:
     from matchtigs_tpu_torch.algos.matchtigs import MatchtigConfig, compute_matchtigs
     from matchtigs_tpu_torch.capi import TigGraphBuilder
     from matchtigs_tpu_torch.algos.greedytigs import (
-        GreedytigConfig, SearchStats, compute_greedytigs, split_device_sources,
+        GreedytigConfig, SearchStats, compute_greedytigs,
     )
     from matchtigs_tpu_torch.cli import main as cli_main
     from matchtigs_tpu_torch.graph.build import build_bigraph_from_unitigs
@@ -473,7 +542,7 @@ def main(argv=None) -> int:
     from matchtigs_tpu_torch.ops import mesh_sort, sssp
     from matchtigs_tpu_torch.ops.device_graph import build_device_graph
     from matchtigs_tpu_torch.ops.matching import (
-        greedy_accept, greedy_accept_sorted_keys, pack_accept_keys, unbalanced_nodes,
+        greedy_accept, greedy_accept_sorted_keys, pack_accept_keys,
     )
     from matchtigs_tpu_torch.parallel import mesh as mesh_mod
 
@@ -485,23 +554,18 @@ def main(argv=None) -> int:
     phase("build", nvcc_s=t_nvcc, gxx_s=time.monotonic() - t0,
           kernels=sorted(sssp.build_kernels()))
 
-    # the flagship dataset (set-up, cached under .bench_data)
+    # the flagship dataset, generated on the card (cached for the mesh
+    # workers in this run's data_dir)
     t0 = time.monotonic()
-    store, kmers, k = testing.make_pangenome_store(
-        genome_length=args.genome_length, k=K, n_strains=N_STRAINS,
-        mutation_rate=MUTATION_RATE, seed=SEED, cache_dir=str(DATA_CACHE),
-        with_repeats=True,
-    )
-    g = build_bigraph_from_unitigs(store, k)
-    out_nodes, in_mask, mult = unbalanced_nodes(g)
-    dg = build_device_graph(g)
-    pending, hard = split_device_sources(
-        dg, out_nodes, GreedytigConfig.host_route_threshold
-    )
-    phase("dataset", seconds=time.monotonic() - t0, genome_length=args.genome_length,
-          unitigs=len(store), kmers=len(kmers), nodes=g.n_nodes,
-          sources=len(out_nodes), device_sources=len(pending),
-          host_routed=0 if hard is None else len(hard))
+    store, kmers, g, dg, (out_nodes, in_mask, mult), pending, data = make_dataset(
+        args.genome_length, device, data_dir)
+    k = K
+    checked = args.genome_length == FLAGSHIP_LENGTH
+    phase("dataset", seconds=time.monotonic() - t0, **data, checked=checked)
+    if checked:
+        counts = {c: data[c] for c in FLAGSHIP_COUNTS}
+        check(data["sha256"] == FLAGSHIP_SHA256 and counts == FLAGSHIP_COUNTS,
+              f"flagship differs from the JAX generator's: {data['sha256']} {counts}")
 
     # 3. Register kernel vs plain version
     t0 = time.monotonic()
@@ -525,32 +589,17 @@ def main(argv=None) -> int:
     # the plain version runs on the card too
     adj = dg.device_buffers(device)
     src = torch.from_numpy(pending).to(device)
-    main_ms = kernel_ms(lambda: sssp.pool_sssp(adj, src, k - 1, CAPACITY))
-    key, over = sssp.pool_sssp(adj, src, k - 1, CAPACITY)
-    want, pool_plain_ms = plain_ms(
-        lambda: sssp.pool_sssp_plain(adj, src, k - 1, CAPACITY)
-    )
-    r = row_mismatches((key, None, over), want)
-    checks.append(r)
-    pool_bound = search_bound(adj, src, key, over, dg.deg_pad)
-    pool_device, pool_kernels, pool_ops = device_ms(
-        lambda: sssp.pool_sssp(adj, src, k - 1, CAPACITY))
-    pool_host = host_ms(lambda: sssp.pool_sssp(adj, src, k - 1, CAPACITY))
-    phase("kernel_main_shape", bound_ms=pool_bound[0], bound_by=pool_bound[1], seconds=time.monotonic() - t0,
-          sources=len(pending), capacity=CAPACITY, kernel_ms=main_ms,
-          kernel_device_ms=pool_device, kernel_device_breakdown_ms=pool_kernels,
-          kernel_device_ops=len(pool_ops), host_enqueue_ms=pool_host,
+    rows4, over4, pool = pool_reading(sssp, adj, src, k - 1, dg.deg_pad)
+    checks.append(pool)
+    phase("kernel_main_shape", seconds=time.monotonic() - t0, **pool,
           registers_and_spilled_bytes={c: sssp.pool_kernel_attributes(c) for c in sssp.CAPACITIES},
-          plain_on_gpu_ms=pool_plain_ms,
-          sources_per_s=len(pending) / (main_ms / 1e3),
-          overflow_frac=float(over.float().mean()), **r)
-    check(not (r["flag_mismatch"] or r["row_mismatch"]),
+          sources_per_s=len(pending) / (pool["kernel_ms"] / 1e3))
+    check(not (pool["flag_mismatch"] or pool["row_mismatch"]),
           "kernel disagrees with its plain version at the main shape")
-    check(len(pool_ops) == 1,
-          f"the main-shape call ran {len(pool_ops)} device operations: {pool_kernels}")
-    over_sources = src[over.bool()].contiguous()  # the sources overflowing C=4
-    rows4, over4 = key, over
-    del want
+    check(pool["kernel_device_ops"] == 1,
+          f"the main-shape call ran {pool['kernel_device_ops']} device operations: "
+          f"{pool['kernel_device_breakdown_ms']}")
+    over_sources = src[over4.bool()].contiguous()  # the sources overflowing C=4
 
     # pool_sssp's larger capacities on the sources that overflow C=4 (C=64
     # runs on the wide kernel), against the plain version on the card
@@ -697,19 +746,6 @@ def main(argv=None) -> int:
     logging.getLogger("matchtigs_tpu_torch").setLevel(logging.WARNING)
     want_kmers = np.unique(kmers.astype(np.uint64))
 
-    def run_cli(fa_in, kk, *options, out_flag="--greedytigs-fa-out"):
-        """(rc, launches, seconds, out store) of one CLI run writing the
-        fasta of ``out_flag`` to out.fa beside ``fa_in``."""
-        fa_out = Path(fa_in).with_name("out.fa")
-        sssp.reset_kernel_launches()
-        t = time.monotonic()
-        rc = cli_main(["--fa-in", str(fa_in), "-k", str(kk), out_flag, str(fa_out),
-                       "--log-level", "Warning", *options])
-        torch.cuda.synchronize()
-        seconds = time.monotonic() - t
-        launches = dict(sssp.KERNEL_LAUNCHES)
-        return rc, launches, seconds, read_fasta(fa_out)[0] if rc == 0 else None
-
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.monotonic()
         fa_in = Path(tmp) / "unitigs.fa.gz"
@@ -744,7 +780,7 @@ def main(argv=None) -> int:
         phase("greedy_device_vs_host", seconds=time.monotonic() - t0,
               device_s=d_s, host_s=h_s,
               device_stage_s=d_stats.stage_times[0], stage_kernel_s=stage_kernel_s,
-              warm_kernel_ms=main_ms, warm_kernel_device_ms=pool_device,
+              warm_kernel_ms=pool["kernel_ms"], warm_kernel_device_ms=pool["kernel_device_ms"],
               stage_sources=d_stats.stage_sources[0],
               stage_sources_per_s=d_stats.stage_sources[0] / stage_kernel_s,
               stage_overflow_frac=d_stats.stage_overflow_frac[0],
@@ -1122,7 +1158,7 @@ def main(argv=None) -> int:
     # 15. Two processes of one gloo group, both on the card, on the
     # flagship cached above
     t0 = time.monotonic()
-    workers = run_mesh_workers(args.genome_length)
+    workers = run_mesh_workers(args.genome_length, data_dir)
     w_launches = [json.loads(str(w["launches"])) for w in workers]
     same = all(np.array_equal(w[c], workers[0][c]) for w in workers
                for c in ("flat", "offsets"))
@@ -1136,6 +1172,12 @@ def main(argv=None) -> int:
     check(all(w["mesh_sort"] > 0 and w["mesh_merge_split"] > 0 and w["sssp_pool"] > 0
               for w in w_launches), f"two-process launches {w_launches}")
 
+    # 16. The 60 Mbp pangenome, generated on the card, then the default
+    # greedytigs CLI on it (and, when asked, the optimal-matchtigs CLI)
+    del g, dg, store, kmers, want_kmers, adj, src, over_sources, nbr, nw, shards, keys, padded
+    torch.cuda.empty_cache()
+    pool_launches += scale60m(args, device, checks)
+
     phase("total", seconds=time.monotonic() - t_start)
     print(json.dumps({"kernels": [
         {
@@ -1146,10 +1188,10 @@ def main(argv=None) -> int:
             "launches": pool_launches + sum(
                 launches["sssp_pool"] for launches in (stage_launches["pool"], *w_launches)),
             "max_abs_err": max(c["max_abs_err"] for c in checks),
-            "ms": main_ms,
-            "plain_ms": pool_plain_ms,
-            "bound_ms": pool_bound[0],
-            "bound_by": pool_bound[1],
+            "ms": pool["kernel_ms"],
+            "plain_ms": pool["plain_on_gpu_ms"],
+            "bound_ms": pool["bound_ms"],
+            "bound_by": pool["bound_by"],
             "library_ms": None,
         },
         {
@@ -1214,7 +1256,139 @@ def main(argv=None) -> int:
     return 0
 
 
-def run_mesh_workers(genome_length: int) -> list[dict]:
+def make_dataset(genome_length: int, device, cache_dir: Path | None = None):
+    """This script's pangenome at ``genome_length``, made on ``device``, its
+    graph and its source split: (store, k-mers, graph, device graph,
+    (out_nodes, in_mask, mult), device sources, fields), the fields being
+    the generation seconds, peak device memory, sha256, graph build
+    seconds, counts and the process's peak host memory."""
+    from matchtigs_tpu_torch import testing
+    from matchtigs_tpu_torch.algos.greedytigs import GreedytigConfig, split_device_sources
+    from matchtigs_tpu_torch.graph.build import build_bigraph_from_unitigs
+    from matchtigs_tpu_torch.ops.device_graph import build_device_graph
+    from matchtigs_tpu_torch.ops.matching import unbalanced_nodes
+
+    t = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    store, kmers, k = testing.make_pangenome_store(
+        genome_length=genome_length, k=K, n_strains=N_STRAINS,
+        mutation_rate=MUTATION_RATE, seed=SEED, with_repeats=True, device=device,
+        cache_dir=None if cache_dir is None else str(cache_dir),
+    )
+    fields = dict(genome_length=genome_length, generation_s=time.monotonic() - t,
+                  peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
+                  sha256=dataset_digest(store, kmers))
+    t = time.monotonic()
+    g = build_bigraph_from_unitigs(store, k)
+    fields["graph_s"] = time.monotonic() - t
+    unbalanced = unbalanced_nodes(g)
+    dg = build_device_graph(g)
+    pending, hard = split_device_sources(
+        dg, unbalanced[0], GreedytigConfig.host_route_threshold)
+    fields.update(unitigs=len(store), kmers=len(kmers), nodes=g.n_nodes,
+                  sources=len(unbalanced[0]), device_sources=len(pending),
+                  host_routed=0 if hard is None else len(hard),
+                  peak_host_rss_gib=peak_rss_gib())
+    return store, kmers, g, dg, unbalanced, pending, fields
+
+
+def scale60m(args, device, checks: list) -> int:
+    """The phases ``dataset_60m``, ``cli_device_60m`` and
+    ``cli_matchtigs_60m``: the 60 Mbp pangenome (six times
+    ``--genome-length``) made on the card, the CLI runs on it held to the
+    host engine and to the input k-mer set, and the register kernel at its
+    shape held to its plain version (appended to ``checks``).  Returns the
+    CLI runs' ``sssp_pool`` launches."""
+    from matchtigs_tpu_torch.algos.greedytigs import GreedytigConfig, compute_greedytigs
+    from matchtigs_tpu_torch.io.writers import write_walks_fasta
+    from matchtigs_tpu_torch.ops import sssp
+
+    t0 = time.monotonic()
+    genome_length = SCALE60M_LENGTH * args.genome_length // FLAGSHIP_LENGTH
+    store, kmers, g, dg, _, pending, data = make_dataset(genome_length, device)
+    k = K
+    checked = genome_length == SCALE60M_LENGTH
+    phase("dataset_60m", seconds=time.monotonic() - t0, **data, checked=checked)
+    if checked:
+        counts = {c: data[c] for c in SCALE60M_COUNTS}
+        check(counts == SCALE60M_COUNTS and data["sha256"] == SCALE60M_SHA256,
+              f"the 60 Mbp dataset differs: {data['sha256']} {counts} against "
+              f"{SCALE60M_COUNTS}")
+
+    t0 = time.monotonic()
+    launched = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        fa_in, fa_out = Path(tmp) / "unitigs.fa.gz", Path(tmp) / "out.fa"
+        t = time.monotonic()
+        write_fasta(fa_in, store)
+        write_s = time.monotonic() - t
+        rc, launches, cli_s, out_store = run_cli(fa_in, k)
+        check(rc == 0 and launches == ONE_POOL_LAUNCH,
+              f"60M CLI rc {rc}, kernel launches {launches}")
+        launched += launches["sssp_pool"]
+        tigs, length = len(out_store), int(out_store.offsets[-1])
+        kmer_equal = bool(np.array_equal(spelled_kmer_set(out_store, k, device), kmers))
+        del out_store
+        cli_fasta = fa_out.read_bytes()
+        t = time.monotonic()
+        hg = g.copy()
+        host = compute_greedytigs(hg, GreedytigConfig(k=k, engine="host"))
+        host_s = time.monotonic() - t
+        write_walks_fasta(hg, host, store, k, Path(tmp) / "host.fa")
+        fasta_equal = (Path(tmp) / "host.fa").read_bytes() == cli_fasta
+        del hg, host, cli_fasta
+
+        # the register kernel at this shape, against its plain version
+        _, _, pool = pool_reading(sssp, dg.device_buffers(device),
+                                  torch.from_numpy(pending).to(device), k - 1, dg.deg_pad)
+        checks.append(pool)
+        phase("cli_device_60m", seconds=time.monotonic() - t0, write_fasta_s=write_s,
+              cli_s=cli_s, launches=launches, tigs=tigs, cumulative_length=length,
+              baseline_md_tigs=1_033_578, host_engine_s=host_s,
+              fasta_equal_host=fasta_equal, kmer_set_equal=kmer_equal,
+              peak_host_rss_gib=peak_rss_gib(), **pool)
+        check(fasta_equal and kmer_equal,
+              f"60M CLI: fasta equal to the host engine's {fasta_equal}, "
+              f"k-mer set equal {kmer_equal}")
+        check(not (pool["flag_mismatch"] or pool["row_mismatch"]),
+              "kernel disagrees with its plain version at the 60M shape")
+
+        t0 = time.monotonic()
+        rc, launches, mt_s, out_store = run_cli(fa_in, k, out_flag="--matchtigs-fa-out")
+        check(rc == 0 and launches == ONE_POOL_LAUNCH,
+              f"60M matchtigs CLI rc {rc}, kernel launches {launches}")
+        launched += launches["sssp_pool"]
+        mt_tigs, mt_len = len(out_store), int(out_store.offsets[-1])
+        mt_equal = bool(np.array_equal(spelled_kmer_set(out_store, k, device), kmers))
+        phase("cli_matchtigs_60m", seconds=time.monotonic() - t0, cli_s=mt_s,
+              launches=launches, tigs=mt_tigs, cumulative_length=mt_len,
+              greedy_tigs=tigs, greedy_cumulative_length=length,
+              kmer_set_equal=mt_equal, peak_host_rss_gib=peak_rss_gib())
+        check(mt_equal and mt_len <= length,
+              f"60M matchtigs: k-mer set equal {mt_equal}, length {mt_len} "
+              f"against greedy's {length}")
+    return launched
+
+
+def run_cli(fa_in, kk, *options, out_flag="--greedytigs-fa-out"):
+    """(rc, launches, seconds, out store) of one CLI run writing the fasta
+    of ``out_flag`` to out.fa beside ``fa_in``."""
+    from matchtigs_tpu_torch.cli import main as cli_main
+    from matchtigs_tpu_torch.io.readers import read_fasta
+    from matchtigs_tpu_torch.ops import sssp
+
+    fa_out = Path(fa_in).with_name("out.fa")
+    sssp.reset_kernel_launches()
+    t = time.monotonic()
+    rc = cli_main(["--fa-in", str(fa_in), "-k", str(kk), out_flag, str(fa_out),
+                   "--log-level", "Warning", *options])
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t
+    launches = dict(sssp.KERNEL_LAUNCHES)
+    return rc, launches, seconds, read_fasta(fa_out)[0] if rc == 0 else None
+
+
+def run_mesh_workers(genome_length: int, data_dir: Path) -> list[dict]:
     """Start this script's ``--mesh-worker`` twice (one gloo group, both on
     the card) and return each rank's results.  Both share one deadline,
     WORKER_TIMEOUT_S from the start; a worker that fails or outlasts it
@@ -1231,7 +1405,7 @@ def run_mesh_workers(genome_length: int) -> list[dict]:
                     procs.append(subprocess.Popen(
                         [sys.executable, str(Path(__file__).resolve()), "--mesh-worker",
                          str(r), "2", str(port), str(outs[r]), "--genome-length",
-                         str(genome_length)],
+                         str(genome_length), "--data-dir", str(data_dir)],
                         stdout=log, stderr=subprocess.STDOUT,
                     ))
             deadline = time.monotonic() + WORKER_TIMEOUT_S
@@ -1251,9 +1425,10 @@ def run_mesh_workers(genome_length: int) -> list[dict]:
         return [dict(np.load(o)) for o in outs]
 
 
-def mesh_worker(rank: str, world: str, port: str, out: str, genome_length: int) -> int:
-    """One process of ``mesh_two_process``: join the group, load the cached
-    flagship, run greedy matchtigs over the mesh of every visible card (one
+def mesh_worker(rank: str, world: str, port: str, out: str, genome_length: int,
+                data_dir: str) -> int:
+    """One process of ``mesh_two_process``: join the group, load the
+    flagship cached in ``data_dir``, run greedy matchtigs over the mesh of every visible card (one
     shard per process here), and save the walks and the kernel launches;
     rank 0 also saves the host engine's walks."""
     from matchtigs_tpu_torch import testing
@@ -1268,7 +1443,7 @@ def mesh_worker(rank: str, world: str, port: str, out: str, genome_length: int) 
                            timeout_s=COLLECTIVE_TIMEOUT_S)
     store, _, k = testing.make_pangenome_store(
         genome_length=genome_length, k=K, n_strains=N_STRAINS,
-        mutation_rate=MUTATION_RATE, seed=SEED, cache_dir=str(DATA_CACHE),
+        mutation_rate=MUTATION_RATE, seed=SEED, cache_dir=data_dir,
         with_repeats=True,
     )
     g = build_bigraph_from_unitigs(store, k)

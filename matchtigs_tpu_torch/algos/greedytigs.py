@@ -72,6 +72,9 @@ class GreedytigConfig:
     # balls, exactly the ones that overflow the device working set).
     # -1 disables the split.
     host_route_threshold: int = 1
+    # Reverse-Cuthill-McKee node renumbering of the device graph (gather
+    # locality; a serial scipy BFS on the host).  The tigs do not change.
+    renumber: bool = False
     # Threads for the native host Dijkstra (None = all cores).
     host_threads: int | None = None
     # Search engine: "auto" and "device" run the device stage on
@@ -306,8 +309,19 @@ def collect_candidates(
 
     devices, mesh = placement if placement is not None else _stage_placement(config)
     t_phase = time.monotonic()
-    dg = build_device_graph(g)
-    logger.info("Device graph build: %.2fs", time.monotonic() - t_phase)
+    dg = build_device_graph(g, renumber=config.renumber)
+    logger.info("Device graph build (renumber=%s): %.2fs", config.renumber,
+                time.monotonic() - t_phase)
+    if dg.to_orig is not None:
+        in_mask = np.asarray(in_mask)[dg.to_orig]
+
+    def search_on_host(sources: np.ndarray) -> Candidates:
+        """The host Dijkstra over device-numbered sources, in original ids."""
+        res = host_search(dg, sources, k - 1, in_mask, n_threads=config.host_threads)
+        if dg.to_orig is not None and len(res):
+            res.u, res.v = dg.unmap_nodes(res.u), dg.unmap_nodes(res.v)
+        return res
+
     # Upload the adjacency first (once per graph, device and layout).
     from ..ops.sssp import _can_pack_adj, batched_bounded_sssp_dispatch
     from ..parallel.mesh import (
@@ -321,7 +335,8 @@ def collect_candidates(
     chunks: list[Candidates] = []
 
     pending, hard_sources = split_device_sources(
-        dg, out_nodes, config.host_route_threshold
+        dg, dg.map_sources(np.asarray(out_nodes, dtype=np.int32)),
+        config.host_route_threshold,
     )
     if hard_sources is not None:
         stats.host_routed = len(hard_sources)
@@ -357,9 +372,8 @@ def collect_candidates(
     routed = None
     if hard_sources is not None:
         t_h = time.monotonic()
-        res = host_search(
-            dg, hard_sources if mesh is None else process_source_slice(hard_sources),
-            k - 1, in_mask, n_threads=config.host_threads,
+        res = search_on_host(
+            hard_sources if mesh is None else process_source_slice(hard_sources)
         )
         if mesh is not None:
             routed = res
@@ -398,9 +412,8 @@ def collect_candidates(
             # Finish the heavy tail with the native host Dijkstra.
             stats.stage_sources.append(n_overflow)
             t_tail = time.monotonic()
-            tail = host_search(
-                dg, pending if mesh is None else process_source_slice(pending),
-                k - 1, in_mask, n_threads=config.host_threads,
+            tail = search_on_host(
+                pending if mesh is None else process_source_slice(pending)
             )
             if mesh is not None:
                 tail = allgather_candidates(tail)

@@ -1,4 +1,4 @@
-# Copied from matchtigs_tpu/testing.py; adds assert_tigs_spell_kmer_strings for k > 63, ball_graph (stage graphs with a ball of a given size) and capi_merges (a graph's topology as C ABI merge calls), and unitigs_from_kmers runs its lookups in threads (same output).
+# Copied from matchtigs_tpu/testing.py; adds assert_tigs_spell_kmer_strings for k > 63, ball_graph (stage graphs with a ball of a given size) and capi_merges (a graph's topology as C ABI merge calls), unitigs_from_kmers runs its lookups in threads (same output), and make_pangenome_store(device=...) builds the k-mer sets and unitigs with torch on a device (same output; pangenome_on_device, unitig_codes_from_kmers).
 """Synthetic data generation and oracle checks.
 
 The reference repo ships no fixtures; its real test oracle is k-mer-set
@@ -17,6 +17,7 @@ import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
 
 from .graph.bigraph import Bigraph
 from .io.sequence_store import SequenceStore
@@ -100,6 +101,7 @@ def make_pangenome_store(
     seed: int = 0,
     cache_dir: str | None = None,
     with_repeats: bool = False,
+    device: str | torch.device | None = None,
 ) -> tuple["SequenceStore", np.ndarray, int]:
     """Reference genome + mutated strains -> unitig store (BASELINE.json
     config-5 analog: pangenome unitigs with bubble-rich topology;
@@ -108,7 +110,14 @@ def make_pangenome_store(
 
     With `cache_dir`, the deterministic result is cached on disk keyed by
     the parameters (generation is memory-bandwidth-bound at 10M+ scales).
+
+    `device` (k <= 31 only) builds the k-mer sets and extracts the unitigs
+    with torch on that device (`pangenome_on_device`); the genomes are
+    still drawn by numpy on the host.  The result is bit-identical to the
+    numpy path's (`device=None`).
     """
+    if device is not None and k > 31:
+        raise ValueError(f"the torch generator covers k <= 31, not k={k}")
     cache_path = None
     if cache_dir is not None:
         from pathlib import Path
@@ -129,16 +138,20 @@ def make_pangenome_store(
         )
     else:
         base = random_genome(genome_length, seed=seed)
-    kmer_parts = [kmer_set_of_codes(base, k)]
-    for i in range(1, n_strains):
-        strain = mutate_genome(base, mutation_rate, seed=seed + 1000 + i)
-        kmer_parts.append(kmer_set_of_codes(strain, k))
-    kmers = np.unique(np.concatenate(kmer_parts))
-    unitigs = unitigs_from_kmers(kmers, k)
-    store = SequenceStore()
-    for u in unitigs:
-        store.add(u)
-    store.finalize()
+    strains = (
+        base if i == 0 else mutate_genome(base, mutation_rate, seed=seed + 1000 + i)
+        for i in range(n_strains)
+    )
+    if device is not None:
+        kmers, codes, offsets = pangenome_on_device(strains, k, torch.device(device))
+        store = SequenceStore.from_flat(codes, offsets)
+    else:
+        kmers = np.unique(np.concatenate([kmer_set_of_codes(s, k) for s in strains]))
+        unitigs = unitigs_from_kmers(kmers, k)
+        store = SequenceStore()
+        for u in unitigs:
+            store.add(u)
+        store.finalize()
     if cache_path is not None:
         cache_path.parent.mkdir(parents=True, exist_ok=True)
         np.savez(cache_path, codes=store.codes, offsets=store.offsets, kmers=kmers)
@@ -398,6 +411,202 @@ def _follow_chains(n: int, nxt: np.ndarray, starts: np.ndarray):
         return np.asarray(order_l, dtype=np.int64), np.asarray(
             offsets_l, dtype=np.int64
         )
+
+
+# -- the torch generator (k <= 31) ------------------------------------------
+#
+# Packed k-mers are int64 tensors: for k <= 31 they use 62 bits, so int64
+# keeps uint64's order, and torch's coverage of uint64 is thin.  Every step
+# is a sort, a search, a gather or a scan, so the whole extraction runs on
+# the device.
+
+# masks that swap ever wider groups of a 64-bit word; each leaves the top
+# bits of its right-shifted half clear, so the sign bits an arithmetic
+# shift brings in are dropped
+_SWAP_MASKS = (
+    (2, 0x3333333333333333),
+    (4, 0x0F0F0F0F0F0F0F0F),
+    (8, 0x00FF00FF00FF00FF),
+    (16, 0x0000FFFF0000FFFF),
+    (32, 0x00000000FFFFFFFF),
+)
+
+
+def revcomp_packed_torch(vals: torch.Tensor, k: int) -> torch.Tensor:
+    """Reverse complement of packed k-mers (int64, k <= 31): the k codes
+    complemented, the word's 32 2-bit groups reversed, then shifted down."""
+    full = (1 << (2 * k)) - 1
+    x = vals ^ full
+    for shift, mask in _SWAP_MASKS:
+        x = ((x >> shift) & mask) | ((x & mask) << shift)
+    return (x >> (2 * (32 - k))) & full
+
+
+def canonical_kmers_torch(codes: torch.Tensor, k: int) -> torch.Tensor:
+    """Canonical packed k-mer (int64, k <= 31) of every window of ``codes``,
+    in order: each window and its reverse complement packed by k shifts."""
+    n = max(0, len(codes) - k + 1)
+    c = codes.to(torch.int64)
+    fwd = torch.zeros(n, dtype=torch.int64, device=codes.device)
+    rc = torch.zeros_like(fwd)
+    for j in range(k):
+        window = c[j:j + n]
+        fwd |= window << (2 * (k - 1 - j))
+        rc |= (3 - window) << (2 * j)
+    return torch.minimum(fwd, rc)
+
+
+def kmer_set_torch(codes: torch.Tensor, k: int) -> torch.Tensor:
+    """Sorted unique canonical packed k-mers (int64) of one sequence's codes
+    (the torch form of `kmer_set_of_codes`, k <= 31)."""
+    return torch.unique(canonical_kmers_torch(codes, k))
+
+
+def pangenome_on_device(strains, k: int, device: torch.device):
+    """(kmers uint64, codes uint8, offsets int64) as numpy arrays: the merged
+    canonical k-mer set of the strains (numpy code arrays, uploaded one at a
+    time) and its unitigs as a flat arena, both built on ``device``."""
+    parts = [kmer_set_torch(torch.from_numpy(np.ascontiguousarray(s)).to(device), k)
+             for s in strains]
+    kmers = torch.unique(torch.cat(parts))
+    del parts
+    codes, offsets = unitig_codes_from_kmers(kmers, k)
+    return (kmers.cpu().numpy().view(np.uint64), codes.cpu().numpy(),
+            offsets.cpu().numpy())
+
+
+def _list_rank(prv: torch.Tensor):
+    """Pointer jumping over ``prv`` (the unique predecessor or -1; in-degree
+    at most 1, so the nodes form disjoint paths and cycles): (p, r, m) with,
+    for a path node, p its path's head and r its distance from it; for a
+    cycle node, p another node of its cycle and m the cycle's smallest
+    index.  Each round doubles the window; the rounds stop when p stops
+    moving (every path converged and every cycle's length divides the
+    window) or once the window covers every node."""
+    n = len(prv)
+    idx = torch.arange(n, device=prv.device)
+    has = prv >= 0
+    p = torch.where(has, prv, idx)
+    r = has.to(torch.int64)
+    m = idx
+    for _ in range(max(1, n.bit_length())):
+        m = torch.minimum(m, m[p])
+        r = r + r[p]
+        p_next = p[p]
+        if torch.equal(p_next, p):
+            break
+        p = p_next
+    return p, r, m
+
+
+def unitig_codes_from_kmers(kmers: torch.Tensor, k: int):
+    """The torch form of `unitigs_from_kmers` (k <= 31): (codes uint8, base
+    offsets int64 with a leading 0) of the maximal unitigs of a canonical
+    packed k-mer set (int64), on its device, in the numpy path's order and
+    orientation: the chains from the starts by start index, then the
+    isolated cycles by their smallest index, each walked from it (as the
+    native ``follow_chains``); the first of each {chain, reverse-complement
+    twin} pair kept, in its lexicographically smaller orientation.
+
+    Each intermediate is dropped once spent: at 60 Mbp each per-k-mer array
+    is 2.4 GB of the device."""
+    if k > 31:
+        raise ValueError(f"unitig_codes_from_kmers covers k <= 31, not k={k}")
+    dev = kmers.device
+    kmers = torch.unique(kmers)
+    oriented = torch.unique(torch.cat([kmers, revcomp_packed_torch(kmers, k)]))
+    n = len(oriented)
+    if n >= 1 << 30:
+        raise ValueError(f"{n} oriented k-mers exceed the chain key's 2^30")
+    if n == 0:
+        return (torch.empty(0, dtype=torch.uint8, device=dev),
+                torch.zeros(1, dtype=torch.int64, device=dev))
+
+    # The successors of x are the set's values in [base, base + 4), base =
+    # x's last k-1 bases followed by A: one contiguous run of the sorted
+    # set.  A predecessor of x is the reverse complement of a successor of
+    # rc(x), so in_deg(x) = out_deg(rc(x)).
+    base = (oriented << 2) & ((1 << (2 * k)) - 1)
+    first_succ = torch.searchsorted(oriented, base)
+    out_deg = torch.searchsorted(oriented, base + 4) - first_succ
+    del base
+    rc_vals = revcomp_packed_torch(oriented, k)
+    rc_idx = torch.searchsorted(oriented, rc_vals)
+    if not torch.equal(oriented[rc_idx.clamp(max=n - 1)], rc_vals):
+        raise RuntimeError("the oriented k-mer set is not closed under reverse complement")
+    del rc_vals
+    in_deg = out_deg[rc_idx]
+
+    # Contracted edge i -> j: both forced and j != rc(i) (the BCALM2
+    # palindrome stop); j's one predecessor is then i.
+    contracted = (out_deg == 1) & (in_deg[first_succ.clamp(max=n - 1)] == 1)
+    contracted &= first_succ != rc_idx
+    del out_deg, in_deg
+    nodes = torch.arange(n, device=dev)
+    nxt = torch.where(contracted, first_succ, -1)
+    prv = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    prv[nxt[contracted]] = nodes[contracted]
+    del first_succ, contracted
+
+    # Chain order: (isolated cycle, head, rank).  A cycle is cut in front
+    # of its smallest node, which then heads it.
+    head, rank, low = _list_rank(prv)
+    cycle = prv[head] >= 0
+    if bool(cycle.any()):
+        cut = prv.clone()
+        cut[cycle & (low == nodes)] = -1
+        head, rank, _ = _list_rank(cut)
+        del cut
+    del prv, low
+    order = torch.argsort((cycle.to(torch.int64) << 60) | (head << 30) | rank)
+    del rank
+    head_sorted = head[order]
+    new_chain = torch.ones(n, dtype=torch.bool, device=dev)
+    new_chain[1:] = head_sorted[1:] != head_sorted[:-1]
+    chain_start = torch.nonzero(new_chain).flatten()
+    chain_end = torch.cat([chain_start[1:], torch.tensor([n], device=dev)])
+    chain_of = torch.empty(n, dtype=torch.int64, device=dev)
+    chain_of[order] = torch.cumsum(new_chain, 0) - 1
+    del head, head_sorted, new_chain
+
+    # Twin dedupe: chain c spells the reverse complement of the chain t that
+    # starts at rc(last(c)).  The numpy loop drops c iff t came first (a
+    # cycle's twin starts at its own smallest node, so it matches only when
+    # that node is rc(last(c))); a chain that is its own twin is kept.
+    chains = torch.arange(len(chain_start), device=dev)
+    rc_last = rc_idx[order[chain_end - 1]]
+    twin = chain_of[rc_last]
+    keep = (twin >= chains) | (order[chain_start[twin]] != rc_last)
+    del rc_idx, chain_of, rc_last, twin, chains
+    kept_start, kept_nodes = chain_start[keep], (chain_end - chain_start)[keep]
+    del chain_start, chain_end, keep
+
+    # Materialize: the first k-mer's k bases, then each further node's last
+    # base; then each chain in its smaller orientation over the codes.
+    lengths = kept_nodes + (k - 1)
+    offsets = torch.zeros(len(lengths) + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(lengths, 0, out=offsets[1:])
+    total = int(offsets[-1])
+    seq = torch.repeat_interleave(torch.arange(len(lengths), device=dev), lengths,
+                                  output_size=total)
+    pos = torch.arange(total, device=dev) - offsets[seq]
+    start = kept_start[seq]
+    node = order[start + (pos - (k - 1)).clamp(min=0)]
+    shift = (2 * (k - 1 - pos)).clamp(min=0)
+    fwd = ((oriented[node] >> shift) & 3).to(torch.uint8)
+    del node, shift, start, order, oriented
+    bwd = 3 - fwd[offsets[seq] + lengths[seq] - 1 - pos]  # the reverse complement
+    del pos
+    # the first position where a chain and its reverse complement differ
+    # (none: a palindrome, kept forward)
+    big = torch.iinfo(torch.int64).max
+    first_diff = torch.full((len(lengths),), big, dtype=torch.int64, device=dev)
+    first_diff.scatter_reduce_(
+        0, seq, torch.where(fwd != bwd, torch.arange(total, device=dev), big), "amin"
+    )
+    at = first_diff.clamp(max=total - 1)
+    flip = (first_diff != big) & (bwd[at] < fwd[at])
+    return torch.where(flip[seq], bwd, fwd), offsets
 
 
 def ball_graph(ball: int, fanout: int) -> tuple[int, np.ndarray, np.ndarray, int]:

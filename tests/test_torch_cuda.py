@@ -418,6 +418,36 @@ def test_matchtigs_run_the_kernel_once(cuda_device):
     testing.assert_tigs_spell_kmer_set(gg, got, store, k, kmers, allow_duplicates=True)
 
 
+@pytest.mark.parametrize("k,repeats", [(9, False), (21, True), (31, True)])
+def test_pangenome_store_on_the_card_equals_numpy(cuda_device, k, repeats):
+    """The torch generator on the card: codes, offsets and k-mers equal the
+    numpy path's bit for bit."""
+    case = dict(genome_length=200000, k=k, n_strains=7, mutation_rate=0.01, seed=3,
+                with_repeats=repeats)
+    want, want_kmers, _ = testing.make_pangenome_store(**case)
+    got, got_kmers, _ = testing.make_pangenome_store(**case, device=cuda_device)
+    assert np.array_equal(got_kmers, want_kmers)
+    assert np.array_equal(got.offsets, want.offsets)
+    assert np.array_equal(got.codes, want.codes)
+
+
+@pytest.mark.parametrize("renumber", [False, True])
+def test_greedy_renumber_runs_the_kernel_once(cuda_device, renumber):
+    """``renumber=True`` on the card: one register-kernel launch and the
+    host engine's walks."""
+    store, kmers, k = testing.make_pangenome_store(
+        genome_length=20000, k=13, n_strains=4, mutation_rate=0.02, seed=11,
+        with_repeats=True,
+    )
+    g = build_bigraph_from_unitigs(store, k)
+    want = compute_greedytigs(g.copy(), GreedytigConfig(k=k, engine="host"))
+    sssp.reset_kernel_launches()
+    got = compute_greedytigs(g.copy(), GreedytigConfig(k=k, renumber=renumber))
+    assert sssp.KERNEL_LAUNCHES["sssp_pool"] == 1
+    assert np.array_equal(got.flat, want.flat)
+    assert np.array_equal(got.offsets, want.offsets)
+
+
 def test_k131_runs_the_wide_kernel(cuda_device):
     store, kmers, k = testing.make_unitig_store_strings(
         genome_length=4000, k=131, seed=131, n_sequences=3

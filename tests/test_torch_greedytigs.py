@@ -97,6 +97,29 @@ def test_one_launch_stage_identical_to_jax_chunked_stage():
     assert np.array_equal(got.offsets, want.offsets)
 
 
+@pytest.mark.parametrize("overflow_mode", ["host", "ladder"])
+def test_renumber_identical_to_jax(caplog, overflow_mode):
+    """``renumber=True`` searches a reverse-Cuthill-McKee-numbered device
+    graph (host-routed and tail sources translated both ways); the walks
+    equal the JAX package's with the same knob."""
+    kind, case = GRAPHS["golden-pangenome"]
+    store, _, k = _store(jtesting, kind, case)
+    want = j_greedy(j_build(store, k), JConfig(
+        k=k, engine="device", use_mesh=False, renumber=True,
+    ))
+    tstore, kmers, tk = _store(ttesting, kind, case)
+    tg = t_build(tstore, tk)
+    stats = SearchStats()
+    with caplog.at_level("INFO", logger="matchtigs_tpu_torch"):
+        got = t_greedy(tg, TConfig(k=tk, engine="device", device="cpu", renumber=True,
+                                   overflow_mode=overflow_mode), stats=stats)
+    assert "Device graph build (renumber=True)" in caplog.text
+    assert stats.host_routed > 0 and stats.retries > 0  # both translations ran
+    assert np.array_equal(got.flat, want.flat)
+    assert np.array_equal(got.offsets, want.offsets)
+    ttesting.assert_tigs_spell_kmer_set(tg, got, tstore, tk, kmers, allow_duplicates=True)
+
+
 @pytest.mark.parametrize(
     "option",
     [dict(use_mesh=True), dict(overflow_mode="ladder")],
