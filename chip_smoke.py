@@ -5,7 +5,7 @@ CLI on the repository's flagship dataset (synthetic 10 Mbp pangenome, 7
 strains, 1% mutations, repeats, k=31), then pathtigs and eulertigs and the
 C ABI, after building every kernel from the sources in the checkout and
 holding each against its plain PyTorch version; then greedy matchtigs on
-the 60 Mbp pangenome:
+the same pangenome at k=63 (deep balls) and on the 60 Mbp pangenome:
 
 - ``dataset``: the flagship made on the card
   (``testing.make_pangenome_store(device=...)``) into this run's own
@@ -51,6 +51,15 @@ the 60 Mbp pangenome:
 - ``mesh_two_process``: two processes of one gloo group, both on the card,
   run greedy matchtigs with ``use_mesh=True`` (this script with
   ``--mesh-worker``); walks equal in both and to the host engine's;
+- ``dataset_k63``: the flagship's pangenome at k=63 made on the card
+  (two-word keys), held to the JAX generator's sha256 and counts;
+- ``cli_device_k63``: the greedytigs CLI on it at first capacity 16 (one
+  register-kernel launch), its fasta equal to the host engine's walks and
+  spelling the input k-mer set, and the register kernel at C=16 on all its
+  device sources against its plain version; ``cli_ladder_k63``: the same
+  with ``--sssp-overflow-mode ladder`` (the wide kernel from C=64 up), and
+  ``pool_sssp`` at C=64 and 1024 on the sources that overflow C=16 against
+  its plain version; ``wide_ball_census_k63``: those sources' balls;
 - ``dataset_60m``: the 60 Mbp pangenome of ``bench.py`` made on the card
   (10.2 M nodes), held to the counts of BASELINE.md and to its sha256,
   with its peak device and host memory;
@@ -63,9 +72,10 @@ the 60 Mbp pangenome:
 Each kernel's ``launches`` in the kernels line is read from path runs
 with the counts set to 0 just before each: ``sssp_pool`` from
 ``cli_device``, ``cli_matchtigs``, ``capi_device``, ``mesh_stage``,
-``mesh_two_process``, ``cli_device_60m`` and ``cli_matchtigs_60m``,
-``sssp_wide`` from
-``cli_ladder`` and ``cli_k131``, ``sssp_compact`` from the compact dispatch
+``mesh_two_process``, ``cli_device_k63``, ``cli_ladder_k63``,
+``cli_device_60m`` and ``cli_matchtigs_60m``, ``sssp_wide`` from
+``cli_ladder``, ``cli_k131``, ``mesh_stage`` (batch) and
+``cli_ladder_k63``, ``sssp_compact`` from the compact dispatch
 of ``compact_vs_full``, ``mesh_sort`` and ``mesh_merge_split`` from
 ``mesh_two_process``.  Each kernel's ``bound_ms`` is the larger of its
 bytes (inputs read once, outputs written once) over the card's memory
@@ -129,6 +139,17 @@ SCALE60M_LENGTH = 60_000_000
 SCALE60M_COUNTS = dict(unitigs=7_843_250, kmers=150_495_678, nodes=10_238_350,
                        sources=4_966_834)
 SCALE60M_SHA256 = "c6b2b3eb29a5f89ca51ddaf5272efe8050a94672ddf8147a4cdf1bf4b2fc84e2"
+# the deep-ball configuration: the flagship's pangenome at k=63 with the
+# device stage at first capacity 16 (BASELINE.md:103-107, :536-540); the
+# sha256 and counts of the JAX package's numpy generator at the flagship's
+# length (matchtigs_tpu.testing, hashed as dataset_digest hashes; the
+# counts are BASELINE.md:103-105's)
+K63, K63_CAPACITY = 63, 16
+K63_SHA256 = "35e3cf5cfb4cac668a2b5e2a3932c72431a05b4977b4c10022d578d8c3adb141"
+K63_COUNTS = dict(unitigs=973_464, kmers=37_673_157, nodes=1_280_624, sources=626_732,
+                  device_sources=582_335)
+K63_WIDE_CAPACITY = 64  # the ladder's first stage on the wide kernel
+K63_CENSUS_CAPACITY = 1024
 CAPACITY = 4  # the GreedytigConfig default
 N_FLAGSHIP_CHECK = 20_000  # flagship sources held against the plain version
 POOL_CAPACITY_CASES = (16, 64)  # pool_sssp capacities timed on the C=4 overflow
@@ -369,9 +390,9 @@ def compare(sssp, dg, sources: np.ndarray, max_weight: int, capacity: int,
     key, over = sssp.pool_sssp(adj, src_dev, max_weight, capacity)
     torch.cuda.synchronize()
     ms = kernel_ms(lambda: sssp.pool_sssp(adj, src_dev, max_weight, capacity))
-    t0 = time.perf_counter()
+    t1 = time.perf_counter()
     want = sssp.pool_sssp_plain(dg.device_buffers("cpu"), src, max_weight, capacity)
-    plain_cpu_ms = 1e3 * (time.perf_counter() - t0)
+    plain_cpu_ms = 1e3 * (time.perf_counter() - t1)
     return dict(
         seconds=time.monotonic() - t0, sources=len(sources), capacity=capacity,
         kernel_ms=ms,
@@ -382,9 +403,12 @@ def compare(sssp, dg, sources: np.ndarray, max_weight: int, capacity: int,
 
 def dataset_digest(store, kmers: np.ndarray) -> str:
     """sha256 over a dataset's codes (uint8), base offsets (int64) and
-    k-mers (uint64), in that order."""
+    k-mers (uint64, or for k > 31 the 16 big-endian bytes of each two-word
+    key), in that order."""
     h = hashlib.sha256()
-    for a, dtype in ((store.codes, np.uint8), (store.offsets, np.int64), (kmers, np.uint64)):
+    two_words = kmers.dtype == np.dtype("V16")
+    for a, dtype in ((store.codes, np.uint8), (store.offsets, np.int64),
+                     (kmers, kmers.dtype if two_words else np.uint64)):
         h.update(np.ascontiguousarray(a, dtype=dtype))
     return h.hexdigest()
 
@@ -394,17 +418,19 @@ def peak_rss_gib() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
 
 
-def pool_reading(sssp, adj, src, max_weight: int, deg: int) -> tuple:
-    """The register kernel at C=CAPACITY on ``src``: (rows, flags, fields),
-    the fields being its event, device and host-enqueue times, the plain
+def pool_reading(sssp, adj, src, max_weight: int, deg: int,
+                 capacity: int = CAPACITY) -> tuple:
+    """``pool_sssp`` at ``capacity`` on ``src`` (the register kernel at C in
+    ``sssp.CAPACITIES``, else the wide kernel): (rows, flags, fields), the
+    fields being its event, device and host-enqueue times, the plain
     version's time on the card and the mismatches against it, the overflow
     share and the bound."""
     def run():
-        return sssp.pool_sssp(adj, src, max_weight, CAPACITY)
-    fields = dict(sources=len(src), capacity=CAPACITY, kernel_ms=kernel_ms(run))
+        return sssp.pool_sssp(adj, src, max_weight, capacity)
+    fields = dict(sources=len(src), capacity=capacity, kernel_ms=kernel_ms(run))
     key, over = run()
     want, fields["plain_on_gpu_ms"] = plain_ms(
-        lambda: sssp.pool_sssp_plain(adj, src, max_weight, CAPACITY))
+        lambda: sssp.pool_sssp_plain(adj, src, max_weight, capacity))
     fields["bound_ms"], fields["bound_by"] = search_bound(adj, src, key, over, deg)
     device, breakdown, ops = device_ms(run)
     fields.update(kernel_device_ms=device, kernel_device_breakdown_ms=breakdown,
@@ -430,23 +456,14 @@ def write_fasta(path: Path, store) -> None:
                          for i in range(len(store))))
 
 
-def spelled_kmers(store, k: int, device) -> torch.Tensor:
-    """Canonical packed k-mers (k <= 31) of every sequence in ``store``,
-    with repeats, as int64 on ``device`` (the host takes tens of seconds
-    for the flagship's outputs): the windows of the concatenated codes that
-    lie inside one sequence."""
-    from matchtigs_tpu_torch.testing import canonical_kmers_torch
-
-    kmers = canonical_kmers_torch(torch.from_numpy(store.codes).to(device), k)
-    offsets = torch.from_numpy(store.offsets).to(device, torch.int64)
-    start = torch.arange(len(kmers), device=device)
-    seq = torch.searchsorted(offsets, start, right=True) - 1
-    return kmers[start + k <= offsets[seq + 1]]
-
-
 def spelled_kmer_set(store, k: int, device) -> np.ndarray:
-    """Sorted unique canonical packed k-mers of every sequence in ``store``."""
-    return torch.unique(spelled_kmers(store, k, device)).cpu().numpy().astype(np.uint64)
+    """Sorted unique canonical packed k-mers (k <= 63) of every sequence in
+    ``store``, made on ``device`` (the host takes tens of seconds for the
+    flagship's outputs), as numpy keys (uint64, or void16 above k = 31)."""
+    from matchtigs_tpu_torch import testing
+
+    spelled = testing.spelled_kmers_torch(store, k, device)
+    return testing.kmers_to_numpy(testing.sorted_unique_kmers(spelled, k))
 
 
 class LogCapture(logging.Handler):
@@ -900,8 +917,8 @@ def smoke(args, data_dir: Path) -> int:
         pe = {}
         for algo, path in outs.items():
             out_store = read_fasta(path)[0]
-            spelled = spelled_kmers(out_store, k, device)
-            unique = torch.unique(spelled).cpu().numpy().astype(np.uint64)
+            spelled = testing.spelled_kmers_torch(out_store, k, device)
+            unique = testing.kmers_to_numpy(testing.sorted_unique_kmers(spelled, k))
             pe[algo] = dict(tigs=len(out_store), cumulative_length=int(out_store.offsets[-1]),
                             kmers=len(spelled),
                             each_kmer_once=len(spelled) == len(unique)
@@ -1172,10 +1189,18 @@ def smoke(args, data_dir: Path) -> int:
     check(all(w["mesh_sort"] > 0 and w["mesh_merge_split"] > 0 and w["sssp_pool"] > 0
               for w in w_launches), f"two-process launches {w_launches}")
 
-    # 16. The 60 Mbp pangenome, generated on the card, then the default
-    # greedytigs CLI on it (and, when asked, the optimal-matchtigs CLI)
+    # 16. Deep balls: the flagship's pangenome at k=63, generated on the
+    # card, and the greedytigs CLI on it at first capacity 16, then with the
+    # ladder
     del g, dg, store, kmers, want_kmers, adj, src, over_sources, nbr, nw, shards, keys, padded
     torch.cuda.empty_cache()
+    k63_launches = deep_balls(args, device, checks, wide)
+    pool_launches += k63_launches["sssp_pool"]
+    wide_launches += k63_launches["sssp_wide"]
+    torch.cuda.empty_cache()
+
+    # 17. The 60 Mbp pangenome, generated on the card, then the default
+    # greedytigs and the optimal-matchtigs CLI on it
     pool_launches += scale60m(args, device, checks)
 
     phase("total", seconds=time.monotonic() - t_start)
@@ -1256,12 +1281,12 @@ def smoke(args, data_dir: Path) -> int:
     return 0
 
 
-def make_dataset(genome_length: int, device, cache_dir: Path | None = None):
-    """This script's pangenome at ``genome_length``, made on ``device``, its
-    graph and its source split: (store, k-mers, graph, device graph,
-    (out_nodes, in_mask, mult), device sources, fields), the fields being
-    the generation seconds, peak device memory, sha256, graph build
-    seconds, counts and the process's peak host memory."""
+def make_dataset(genome_length: int, device, cache_dir: Path | None = None, k: int = K):
+    """This script's pangenome at ``genome_length`` and ``k``, made on
+    ``device``, its graph and its source split: (store, k-mers, graph,
+    device graph, (out_nodes, in_mask, mult), device sources, fields), the
+    fields being the generation seconds, peak device memory, sha256, graph
+    build seconds, counts and the process's peak host memory."""
     from matchtigs_tpu_torch import testing
     from matchtigs_tpu_torch.algos.greedytigs import GreedytigConfig, split_device_sources
     from matchtigs_tpu_torch.graph.build import build_bigraph_from_unitigs
@@ -1271,7 +1296,7 @@ def make_dataset(genome_length: int, device, cache_dir: Path | None = None):
     t = time.monotonic()
     torch.cuda.reset_peak_memory_stats()
     store, kmers, k = testing.make_pangenome_store(
-        genome_length=genome_length, k=K, n_strains=N_STRAINS,
+        genome_length=genome_length, k=k, n_strains=N_STRAINS,
         mutation_rate=MUTATION_RATE, seed=SEED, with_repeats=True, device=device,
         cache_dir=None if cache_dir is None else str(cache_dir),
     )
@@ -1285,11 +1310,123 @@ def make_dataset(genome_length: int, device, cache_dir: Path | None = None):
     dg = build_device_graph(g)
     pending, hard = split_device_sources(
         dg, unbalanced[0], GreedytigConfig.host_route_threshold)
-    fields.update(unitigs=len(store), kmers=len(kmers), nodes=g.n_nodes,
-                  sources=len(unbalanced[0]), device_sources=len(pending),
+    fields.update(unitigs=len(store), bases=int(store.offsets[-1]), kmers=len(kmers),
+                  nodes=g.n_nodes, sources=len(unbalanced[0]), device_sources=len(pending),
                   host_routed=0 if hard is None else len(hard),
                   peak_host_rss_gib=peak_rss_gib())
     return store, kmers, g, dg, unbalanced, pending, fields
+
+
+def deep_balls(args, device, checks: list, wide: list) -> dict:
+    """The phases ``dataset_k63``, ``cli_device_k63`` and ``cli_ladder_k63``
+    (with ``wide_ball_census_k63``): the flagship's pangenome at k=63 made
+    on the card, the greedytigs CLI on it at first capacity 16 and then
+    with the ladder, each held to the host engine's fasta and to the input
+    k-mer set; ``pool_sssp`` at C=16 on all device sources and at C=64 and
+    1024 on those that overflow C=16, each held to its plain version
+    (appended to ``checks`` and ``wide``).  Returns the CLI runs' launches
+    per kernel."""
+    from matchtigs_tpu_torch.algos.greedytigs import (
+        GreedytigConfig, SearchStats, compute_greedytigs,
+    )
+    from matchtigs_tpu_torch.io.writers import write_walks_fasta
+    from matchtigs_tpu_torch.ops import sssp
+
+    t0 = time.monotonic()
+    store, kmers, g, dg, _, pending, data = make_dataset(args.genome_length, device, k=K63)
+    k = K63
+    checked = args.genome_length == FLAGSHIP_LENGTH
+    phase("dataset_k63", seconds=time.monotonic() - t0, k=k, **data, checked=checked)
+    if checked:
+        counts = {c: data[c] for c in K63_COUNTS}
+        check(data["sha256"] == K63_SHA256 and counts == K63_COUNTS,
+              f"the k=63 dataset differs from the JAX generator's: {data['sha256']} {counts}")
+
+    launched = dict.fromkeys(ONE_POOL_LAUNCH, 0)
+    first_capacity = ("--sssp-initial-capacity", str(K63_CAPACITY))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.monotonic()
+        fa_in, fa_out, host_out = (Path(tmp) / f for f in ("unitigs.fa.gz", "out.fa", "host.fa"))
+        t = time.monotonic()
+        write_fasta(fa_in, store)
+        write_s = time.monotonic() - t
+        rc, launches, cli_s, out_store = run_cli(fa_in, k, *first_capacity)
+        check(rc == 0 and launches == ONE_POOL_LAUNCH,
+              f"k=63 CLI rc {rc}, kernel launches {launches}")
+        tigs, length = len(out_store), int(out_store.offsets[-1])
+        kmer_equal = bool(np.array_equal(spelled_kmer_set(out_store, k, device), kmers))
+        cli_fasta = fa_out.read_bytes()
+        del out_store
+        t = time.monotonic()
+        hg = g.copy()
+        host = compute_greedytigs(hg, GreedytigConfig(k=k, engine="host"))
+        host_s = time.monotonic() - t
+        write_walks_fasta(hg, host, store, k, host_out)
+        host_fasta = host_out.read_bytes()
+        fasta_equal = host_fasta == cli_fasta
+        del hg, host, cli_fasta
+        launched = {name: n + launches[name] for name, n in launched.items()}
+
+        # the register kernel at C=16 on every device source (the CLI's
+        # launch), then the first sources against the plain version on the
+        # host
+        adj = dg.device_buffers(device)
+        src = torch.from_numpy(pending).to(device)
+        _, over16, pool = pool_reading(sssp, adj, src, k - 1, dg.deg_pad, K63_CAPACITY)
+        first = compare(sssp, dg, pending[:N_FLAGSHIP_CHECK], k - 1, K63_CAPACITY, device)
+        checks += [pool, first]
+        phase("cli_device_k63", seconds=time.monotonic() - t0, write_fasta_s=write_s,
+              cli_s=cli_s, launches=launches, tigs=tigs, cumulative_length=length,
+              host_engine_s=host_s, fasta_equal_host=fasta_equal, kmer_set_equal=kmer_equal,
+              registers_and_spilled_bytes=sssp.pool_kernel_attributes(K63_CAPACITY),
+              first_sources_vs_plain_on_host=first, peak_host_rss_gib=peak_rss_gib(), **pool)
+        check(fasta_equal and kmer_equal,
+              f"k=63 CLI: fasta equal to the host engine's {fasta_equal}, "
+              f"k-mer set equal {kmer_equal}")
+        check(not any(r["flag_mismatch"] or r["row_mismatch"] for r in (pool, first)),
+              "the register kernel disagrees with its plain version at k=63")
+        check(pool["kernel_device_ops"] == 1,
+              f"the k=63 C=16 call ran {pool['kernel_device_ops']} device operations")
+        over_sources = src[over16.bool()].contiguous()
+        del src, over16
+
+        # the ladder: the CLI, then a library run for its stages
+        t0 = time.monotonic()
+        rc, launches, ladder_s, out_store = run_cli(
+            fa_in, k, *first_capacity, "--sssp-overflow-mode", "ladder")
+        check(rc == 0, f"k=63 ladder CLI rc {rc}")
+        ladder_tigs, ladder_len = len(out_store), int(out_store.offsets[-1])
+        ladder_kmers = bool(np.array_equal(spelled_kmer_set(out_store, k, device), kmers))
+        ladder_fasta = fa_out.read_bytes() == host_fasta
+        del out_store, host_fasta
+        launched = {name: n + launches[name] for name, n in launched.items()}
+        stats = SearchStats()
+        compute_greedytigs(g.copy(), GreedytigConfig(
+            k=k, initial_capacity=K63_CAPACITY, overflow_mode="ladder"), stats)
+        capacities = [K63_CAPACITY * 4 ** i for i in range(len(stats.stage_sources))]
+        # the wide kernel at the ladder's first wide stage, and at C=1024
+        # for the census, on the sources that overflow C=16
+        readings = []
+        for cap in (K63_WIDE_CAPACITY, K63_CENSUS_CAPACITY):
+            rows, over, r = pool_reading(sssp, adj, over_sources, k - 1, dg.deg_pad, cap)
+            readings.append(r)
+        wide += readings
+        phase("cli_ladder_k63", seconds=time.monotonic() - t0, cli_s=ladder_s,
+              launches=launches, stage_capacities=capacities,
+              stage_sources=stats.stage_sources,
+              stage_kernel_ms=[1e3 * x for x in stats.stage_kernel_times],
+              tigs=ladder_tigs, cumulative_length=ladder_len, fasta_equal_host=ladder_fasta,
+              kmer_set_equal=ladder_kmers, wide=readings)
+        phase("wide_ball_census_k63", **ball_census(rows, over, dg.sentinel))
+        check(ladder_fasta and ladder_kmers,
+              f"k=63 ladder CLI: fasta equal to the host engine's {ladder_fasta}, "
+              f"k-mer set equal {ladder_kmers}")
+        check(len(capacities) >= 2 and launches == dict(
+            ONE_POOL_LAUNCH, sssp_wide=len(capacities) - 1),
+              f"k=63 ladder launches {launches} for the stages {capacities}")
+        check(not any(r["flag_mismatch"] or r["row_mismatch"] for r in readings),
+              "the wide kernel disagrees with its plain version at k=63")
+    return launched
 
 
 def scale60m(args, device, checks: list) -> int:

@@ -1,4 +1,4 @@
-# Copied from matchtigs_tpu/graph/build.py, plus _connected_component_labels from algos/matchtigs.py.
+# Copied from matchtigs_tpu/graph/build.py, plus _connected_component_labels from algos/matchtigs.py; (k-1)-mers of 32-62 bases are deduplicated as two uint64 words (_unique_two_words: the same order, so the same node ids).
 """Build the bidirected de Bruijn node graph from unitig sequences.
 
 Capability-equivalent of ``genome-graph``'s edge-centric readers
@@ -27,17 +27,39 @@ def _pack_rows(kmers: np.ndarray) -> np.ndarray:
     kmers = np.ascontiguousarray(kmers)
     m = kmers.shape[1]
     if m <= 31:
-        # Horner over transposed contiguous columns: converting the whole
-        # [n, m] matrix to uint64 up front costs 8x the memory (7.5 GB at
-        # 31M endpoint kmers) and strided column reads dominated 60M-scale
-        # graph builds (~190s); this is a few sequential passes.
-        kt = np.ascontiguousarray(kmers.T)
-        out = kt[0].astype(np.uint64)
-        for j in range(1, m):
-            np.left_shift(out, np.uint64(2), out=out)
-            out |= kt[j]
-        return out
+        return _horner(kmers)
     return kmers.view([("", kmers.dtype)] * m).reshape(-1)
+
+
+def _horner(kmers: np.ndarray) -> np.ndarray:
+    """uint64 keys of uint8 [n, m] code rows, m <= 32, first base most
+    significant.  Horner over transposed contiguous columns: converting the
+    whole [n, m] matrix to uint64 up front costs 8x the memory (7.5 GB at
+    31M endpoint kmers) and strided column reads dominated 60M-scale graph
+    builds (~190s); this is a few sequential passes."""
+    kt = np.ascontiguousarray(kmers.T)
+    out = np.zeros(kmers.shape[0], dtype=np.uint64)
+    for col in kt:
+        np.left_shift(out, np.uint64(2), out=out)
+        out |= col
+    return out
+
+
+def _unique_two_words(kmers: np.ndarray) -> tuple[int, np.ndarray]:
+    """(distinct rows, inverse) of uint8 [n, m] code rows, 32 <= m <= 62,
+    as ``np.unique`` of their structured rows gives them: each row as two
+    uint64 words (hi: its first m - 32 bases, lo: its last 32), whose
+    numeric order is the rows' lexicographic order, sorted by one lexsort
+    instead of a comparison sort over m byte fields."""
+    m = kmers.shape[1]
+    hi, lo = _horner(kmers[:, : m - 32]), _horner(kmers[:, m - 32:])
+    order = np.lexsort((lo, hi))
+    hi, lo = hi[order], lo[order]
+    new = np.ones(len(order), dtype=bool)
+    new[1:] = (hi[1:] != hi[:-1]) | (lo[1:] != lo[:-1])
+    inverse = np.empty(len(order), dtype=np.int64)
+    inverse[order] = np.cumsum(new) - 1
+    return int(new.sum()), inverse
 
 
 def _rc_packed(packed: np.ndarray, m: int) -> np.ndarray:
@@ -137,9 +159,12 @@ def build_bigraph_from_unitigs(store: SequenceStore, k: int) -> Bigraph:
         rc_pref = (3 - pref)[:, ::-1]
         rc_suff = (3 - suff)[:, ::-1]
         all_kmers = np.concatenate([pref, suff, rc_pref, rc_suff], axis=0)
-        packed = _pack_rows(all_kmers)
-    uniq, inverse = unique_with_inverse(packed)
-    n_nodes = len(uniq)
+        packed = None if km1 <= 62 else _pack_rows(all_kmers)
+    if packed is None:
+        n_nodes, inverse = _unique_two_words(all_kmers)
+    else:
+        uniq, inverse = unique_with_inverse(packed)
+        n_nodes = len(uniq)
     inverse = inverse.astype(np.int32, copy=False).reshape(4, n_uni)
     node_pref, node_suff, node_rc_pref, node_rc_suff = inverse
 

@@ -1,4 +1,4 @@
-# Copied from matchtigs_tpu/testing.py; adds assert_tigs_spell_kmer_strings for k > 63, ball_graph (stage graphs with a ball of a given size) and capi_merges (a graph's topology as C ABI merge calls), unitigs_from_kmers runs its lookups in threads (same output), and make_pangenome_store(device=...) builds the k-mer sets and unitigs with torch on a device (same output; pangenome_on_device, unitig_codes_from_kmers).
+# Copied from matchtigs_tpu/testing.py; adds assert_tigs_spell_kmer_strings for k > 63, ball_graph (stage graphs with a ball of a given size) and capi_merges (a graph's topology as C ABI merge calls), unitigs_from_kmers runs its lookups in threads (same output), make_pangenome_store(device=...) builds the k-mer sets and unitigs with torch on a device for k <= 63 (same output; pangenome_on_device, unitig_codes_from_kmers, spelled_kmers_torch), and the two-word path handles k = 32 (the original raises there: its predecessor shift goes negative).
 """Synthetic data generation and oracle checks.
 
 The reference repo ships no fixtures; its real test oracle is k-mer-set
@@ -111,13 +111,13 @@ def make_pangenome_store(
     With `cache_dir`, the deterministic result is cached on disk keyed by
     the parameters (generation is memory-bandwidth-bound at 10M+ scales).
 
-    `device` (k <= 31 only) builds the k-mer sets and extracts the unitigs
-    with torch on that device (`pangenome_on_device`); the genomes are
-    still drawn by numpy on the host.  The result is bit-identical to the
-    numpy path's (`device=None`).
+    `device` (k <= 63) builds the k-mer sets and extracts the unitigs with
+    torch on that device (`pangenome_on_device`); the genomes are still
+    drawn by numpy on the host.  The result is bit-identical to the numpy
+    path's (`device=None`).
     """
-    if device is not None and k > 31:
-        raise ValueError(f"the torch generator covers k <= 31, not k={k}")
+    if device is not None and k > 63:
+        raise ValueError(f"the torch generator covers k <= 63, not k={k}")
     cache_path = None
     if cache_dir is not None:
         from pathlib import Path
@@ -130,18 +130,7 @@ def make_pangenome_store(
             store = SequenceStore.from_flat(data["codes"], data["offsets"])
             return store, data["kmers"], k
 
-    if with_repeats:
-        base = random_genome_with_repeats(
-            genome_length,
-            seed=seed,
-            copies_per_family=max(20, genome_length // 25000),
-        )
-    else:
-        base = random_genome(genome_length, seed=seed)
-    strains = (
-        base if i == 0 else mutate_genome(base, mutation_rate, seed=seed + 1000 + i)
-        for i in range(n_strains)
-    )
+    strains = pangenome_strains(genome_length, n_strains, mutation_rate, seed, with_repeats)
     if device is not None:
         kmers, codes, offsets = pangenome_on_device(strains, k, torch.device(device))
         store = SequenceStore.from_flat(codes, offsets)
@@ -156,6 +145,25 @@ def make_pangenome_store(
         cache_path.parent.mkdir(parents=True, exist_ok=True)
         np.savez(cache_path, codes=store.codes, offsets=store.offsets, kmers=kmers)
     return store, kmers, k
+
+
+def pangenome_strains(
+    genome_length: int, n_strains: int, mutation_rate: float, seed: int, with_repeats: bool
+):
+    """The code arrays of `make_pangenome_store`'s strains, one at a time:
+    the base genome, then its mutated copies."""
+    if with_repeats:
+        base = random_genome_with_repeats(
+            genome_length,
+            seed=seed,
+            copies_per_family=max(20, genome_length // 25000),
+        )
+    else:
+        base = random_genome(genome_length, seed=seed)
+    return (
+        base if i == 0 else mutate_genome(base, mutation_rate, seed=seed + 1000 + i)
+        for i in range(n_strains)
+    )
 
 
 def _pairs_to_void(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
@@ -332,9 +340,13 @@ def _unitigs_from_kmers_2x64(kmers: np.ndarray, k: int) -> list[np.ndarray]:
         hit = idx >= 0
         out_deg += hit
         succ_sum += np.where(hit, idx, 0)
-        # predecessor: shift right 2, prepend base c
+        # predecessor: shift right 2, prepend base c (at k = 32 hi holds no
+        # base, so c lands in the top of lo)
         pl = (olo >> two) | ((ohi & np.uint64(3)) << np.uint64(62))
-        ph = (ohi >> two) | (cc << np.uint64(2 * (k_hi - 1)))
+        if k_hi:
+            ph = (ohi >> two) | (cc << np.uint64(2 * (k_hi - 1)))
+        else:
+            ph, pl = ohi, pl | (cc << np.uint64(62))
         in_deg += find(ph, pl) >= 0
     rc_ohi, rc_olo = dna.revcomp_packed_2x64(ohi, olo, k)
     rc_idx = find(rc_ohi, rc_olo)
@@ -413,12 +425,19 @@ def _follow_chains(n: int, nxt: np.ndarray, starts: np.ndarray):
         )
 
 
-# -- the torch generator (k <= 31) ------------------------------------------
+# -- the torch generator (k <= 63) ------------------------------------------
 #
-# Packed k-mers are int64 tensors: for k <= 31 they use 62 bits, so int64
-# keeps uint64's order, and torch's coverage of uint64 is thin.  Every step
-# is a sort, a search, a gather or a scan, so the whole extraction runs on
-# the device.
+# Packed k-mers are int64 words.  For k <= 31 one word of 62 bits, so int64
+# keeps uint64's order, and torch's coverage of uint64 is thin.  For
+# 31 < k <= 63 two words, as numpy's two-word packing has them: hi holds the
+# first k - 32 bases (at most 62 bits) and lo the last 32 (all 64 bits), so
+# lo is compared with its bit 63 flipped (``_SIGN``), which makes int64's
+# order uint64's, and masked after each right shift.  Keys cross the API as
+# int64 ``[n]`` (k <= 31) or ``[n, 2]`` (hi, lo) tensors, and travel inside
+# as tuples of their words.  Every step is a sort, a search, a gather or a
+# scan, so the whole extraction runs on the device.
+
+_SIGN = -(1 << 63)
 
 # masks that swap ever wider groups of a 64-bit word; each leaves the top
 # bits of its right-shifted half clear, so the sign bits an arithmetic
@@ -432,47 +451,168 @@ _SWAP_MASKS = (
 )
 
 
-def revcomp_packed_torch(vals: torch.Tensor, k: int) -> torch.Tensor:
-    """Reverse complement of packed k-mers (int64, k <= 31): the k codes
-    complemented, the word's 32 2-bit groups reversed, then shifted down."""
-    full = (1 << (2 * k)) - 1
-    x = vals ^ full
+def _words(keys: torch.Tensor, k: int) -> tuple:
+    """A key tensor as its words: ``(keys,)`` for k <= 31, ``(hi, lo)`` for
+    31 < k <= 63."""
+    if not 1 <= k <= 63:
+        raise ValueError(f"the torch generator covers k <= 63, not k={k}")
+    shape = (-1,) if k <= 31 else (-1, 2)
+    if keys.dim() != len(shape) or (k > 31 and keys.shape[1] != 2):
+        raise ValueError(f"k={k} takes int64 keys of shape {shape}, not {tuple(keys.shape)}")
+    return (keys,) if k <= 31 else (keys[:, 0].contiguous(), keys[:, 1].contiguous())
+
+
+def _tensor(words: tuple) -> torch.Tensor:
+    return words[0] if len(words) == 1 else torch.stack(words, 1)
+
+
+def _base_slot(b: int, k: int) -> tuple[int, int]:
+    """(word, shift) of base ``b`` of a packed k-mer, first base most
+    significant."""
+    shift = 2 * (k - 1 - b)
+    if k <= 31:
+        return 0, shift
+    return (0, shift - 64) if shift >= 64 else (1, shift)
+
+
+def _reverse_groups(x: torch.Tensor) -> torch.Tensor:
+    """The 32 2-bit groups of each int64 word in reverse order."""
     for shift, mask in _SWAP_MASKS:
         x = ((x >> shift) & mask) | ((x & mask) << shift)
-    return (x >> (2 * (32 - k))) & full
+    return x
+
+
+def _revcomp_words(words: tuple, k: int) -> tuple:
+    """Reverse complements of packed k-mers: the codes complemented, each
+    word's 32 2-bit groups reversed, then the k codes shifted down."""
+    if len(words) == 1:
+        full = (1 << (2 * k)) - 1
+        return ((_reverse_groups(words[0] ^ full) >> (2 * (32 - k))) & full,)
+    hi, lo = words
+    k_hi = k - 32
+    top = _reverse_groups(~lo)  # the first 32 bases of the reverse complement
+    if k_hi == 0:
+        return torch.zeros_like(top), top
+    mask = (1 << (2 * k_hi)) - 1
+    bottom = _reverse_groups(hi ^ mask)  # its last k - 32, at the word's top
+    shift = 64 - 2 * k_hi
+    return (top >> shift) & mask, ((bottom >> shift) & mask) | (top << (2 * k_hi))
 
 
 def canonical_kmers_torch(codes: torch.Tensor, k: int) -> torch.Tensor:
-    """Canonical packed k-mer (int64, k <= 31) of every window of ``codes``,
-    in order: each window and its reverse complement packed by k shifts."""
+    """Canonical packed k-mer (k <= 63) of every window of ``codes``, in
+    order: each window and its reverse complement packed by k shifts."""
     n = max(0, len(codes) - k + 1)
     c = codes.to(torch.int64)
-    fwd = torch.zeros(n, dtype=torch.int64, device=codes.device)
+    shape = (1 if k <= 31 else 2, n)
+    fwd = torch.zeros(shape, dtype=torch.int64, device=codes.device)
     rc = torch.zeros_like(fwd)
     for j in range(k):
         window = c[j:j + n]
-        fwd |= window << (2 * (k - 1 - j))
-        rc |= (3 - window) << (2 * j)
-    return torch.minimum(fwd, rc)
+        word, shift = _base_slot(j, k)
+        fwd[word] |= window << shift
+        word, shift = _base_slot(k - 1 - j, k)
+        rc[word] |= (3 - window) << shift
+    if k <= 31:
+        return torch.minimum(fwd[0], rc[0])
+    take_rc = (rc[0] < fwd[0]) | ((rc[0] == fwd[0]) & ((rc[1] ^ _SIGN) < (fwd[1] ^ _SIGN)))
+    return torch.where(take_rc, rc, fwd).T.contiguous()
+
+
+def _sorted_unique(words: tuple) -> tuple:
+    """The distinct keys in ascending order (lo words as unsigned)."""
+    if len(words) == 1:
+        return (torch.unique(words[0]),)
+    hi, lo = words
+    order = torch.argsort(lo ^ _SIGN, stable=True)
+    order = order[torch.argsort(hi[order], stable=True)]
+    hi, lo = hi[order], lo[order]
+    del order
+    new = torch.ones(len(hi), dtype=torch.bool, device=hi.device)
+    new[1:] = (hi[1:] != hi[:-1]) | (lo[1:] != lo[:-1])
+    return hi[new], lo[new]
+
+
+def sorted_unique_kmers(keys: torch.Tensor, k: int) -> torch.Tensor:
+    """The distinct packed k-mers of ``keys`` (int64 ``[n]`` or ``[n, 2]``)
+    in numpy's order (uint64 values, or the big-endian void16 keys)."""
+    return _tensor(_sorted_unique(_words(keys, k)))
 
 
 def kmer_set_torch(codes: torch.Tensor, k: int) -> torch.Tensor:
-    """Sorted unique canonical packed k-mers (int64) of one sequence's codes
-    (the torch form of `kmer_set_of_codes`, k <= 31)."""
-    return torch.unique(canonical_kmers_torch(codes, k))
+    """Sorted unique canonical packed k-mers of one sequence's codes (the
+    torch form of `kmer_set_of_codes`, k <= 63)."""
+    return sorted_unique_kmers(canonical_kmers_torch(codes, k), k)
+
+
+def kmers_to_numpy(keys: torch.Tensor) -> np.ndarray:
+    """Torch keys as numpy's: uint64 ``[n]``, or void16 (hi, lo) keys."""
+    a = keys.cpu().numpy().view(np.uint64)
+    return a if a.ndim == 1 else _pairs_to_void(a[:, 0], a[:, 1])
+
+
+def kmers_to_torch(kmers: np.ndarray) -> torch.Tensor:
+    """Numpy keys (uint64, or void16 for 31 < k <= 63) as the torch
+    generator's int64 ``[n]`` or ``[n, 2]`` (hi, lo)."""
+    if kmers.dtype == np.dtype("V16"):
+        return torch.from_numpy(np.stack(_void_to_pairs(kmers), 1).view(np.int64))
+    return torch.from_numpy(np.ascontiguousarray(kmers, np.uint64).view(np.int64))
+
+
+def spelled_kmers_torch(store: SequenceStore, k: int, device) -> torch.Tensor:
+    """Canonical packed k-mers of every sequence in ``store``, with repeats,
+    on ``device`` (k <= 63; the host takes tens of seconds for a 10 Mbp
+    pangenome's tigs): the windows of the concatenated codes that lie
+    inside one sequence."""
+    kmers = canonical_kmers_torch(torch.from_numpy(store.codes).to(device), k)
+    offsets = torch.from_numpy(store.offsets).to(device, torch.int64)
+    start = torch.arange(len(kmers), device=device)
+    seq = torch.searchsorted(offsets, start, right=True) - 1
+    return kmers[start + k <= offsets[seq + 1]]
 
 
 def pangenome_on_device(strains, k: int, device: torch.device):
-    """(kmers uint64, codes uint8, offsets int64) as numpy arrays: the merged
+    """(kmers, codes uint8, offsets int64) as numpy arrays: the merged
     canonical k-mer set of the strains (numpy code arrays, uploaded one at a
-    time) and its unitigs as a flat arena, both built on ``device``."""
+    time; uint64 or void16 keys, as `kmer_set_of_codes` gives them) and its
+    unitigs as a flat arena, both built on ``device``."""
     parts = [kmer_set_torch(torch.from_numpy(np.ascontiguousarray(s)).to(device), k)
              for s in strains]
-    kmers = torch.unique(torch.cat(parts))
+    kmers = sorted_unique_kmers(torch.cat(parts), k)
     del parts
     codes, offsets = unitig_codes_from_kmers(kmers, k)
-    return (kmers.cpu().numpy().view(np.uint64), codes.cpu().numpy(),
-            offsets.cpu().numpy())
+    return kmers_to_numpy(kmers), codes.cpu().numpy(), offsets.cpu().numpy()
+
+
+def _search(keys: tuple, queries: tuple, right: bool = False) -> torch.Tensor:
+    """Per query, the index of the first of the sorted unique ``keys`` not
+    below it (or, ``right``, above it).  Two words: the run of keys with
+    the query's hi, then a binary search on lo inside it."""
+    if len(keys) == 1:
+        return torch.searchsorted(keys[0], queries[0], right=right)
+    hi, lo = keys
+    left = torch.searchsorted(hi, queries[0])
+    end = torch.searchsorted(hi, queries[0], right=True)
+    steps = int((end - left).max()).bit_length() if len(left) else 0
+    slo, qlo = lo ^ _SIGN, queries[1] ^ _SIGN
+    for _ in range(steps):
+        live = left < end
+        mid = (left + end) >> 1
+        at = slo[mid.clamp(max=len(slo) - 1)]
+        up = live & ((at <= qlo) if right else (at < qlo))
+        left = torch.where(up, mid + 1, left)
+        end = torch.where(live & ~up, mid, end)
+    return left
+
+
+def _successor_base(words: tuple, k: int) -> tuple:
+    """x's last k - 1 bases followed by A: the least of x's possible
+    successors, which run from it to it | 3."""
+    if len(words) == 1:
+        return ((words[0] << 2) & ((1 << (2 * k)) - 1),)
+    hi, lo = words
+    mask = (1 << (2 * (k - 32))) - 1  # 0 at k = 32: hi holds no base
+    return ((hi << 2) | ((lo >> 62) & 3)) & mask, lo << 2
 
 
 def _list_rank(prv: torch.Tensor):
@@ -500,39 +640,40 @@ def _list_rank(prv: torch.Tensor):
 
 
 def unitig_codes_from_kmers(kmers: torch.Tensor, k: int):
-    """The torch form of `unitigs_from_kmers` (k <= 31): (codes uint8, base
+    """The torch form of `unitigs_from_kmers` (k <= 63): (codes uint8, base
     offsets int64 with a leading 0) of the maximal unitigs of a canonical
-    packed k-mer set (int64), on its device, in the numpy path's order and
-    orientation: the chains from the starts by start index, then the
-    isolated cycles by their smallest index, each walked from it (as the
-    native ``follow_chains``); the first of each {chain, reverse-complement
-    twin} pair kept, in its lexicographically smaller orientation.
+    packed k-mer set (int64 ``[n]`` for k <= 31, ``[n, 2]`` (hi, lo) words
+    above), on its device, in the numpy path's order and orientation: the
+    chains from the starts by start index, then the isolated cycles by their
+    smallest index, each walked from it (as the native ``follow_chains``);
+    the first of each {chain, reverse-complement twin} pair kept, in its
+    lexicographically smaller orientation.
 
     Each intermediate is dropped once spent: at 60 Mbp each per-k-mer array
     is 2.4 GB of the device."""
-    if k > 31:
-        raise ValueError(f"unitig_codes_from_kmers covers k <= 31, not k={k}")
+    words = _words(kmers, k)
     dev = kmers.device
-    kmers = torch.unique(kmers)
-    oriented = torch.unique(torch.cat([kmers, revcomp_packed_torch(kmers, k)]))
-    n = len(oriented)
+    oriented = _sorted_unique(tuple(torch.cat(w) for w in zip(words, _revcomp_words(words, k))))
+    del words
+    n = len(oriented[0])
     if n >= 1 << 30:
         raise ValueError(f"{n} oriented k-mers exceed the chain key's 2^30")
     if n == 0:
         return (torch.empty(0, dtype=torch.uint8, device=dev),
                 torch.zeros(1, dtype=torch.int64, device=dev))
 
-    # The successors of x are the set's values in [base, base + 4), base =
+    # The successors of x are the set's keys from base to base | 3, base =
     # x's last k-1 bases followed by A: one contiguous run of the sorted
     # set.  A predecessor of x is the reverse complement of a successor of
     # rc(x), so in_deg(x) = out_deg(rc(x)).
-    base = (oriented << 2) & ((1 << (2 * k)) - 1)
-    first_succ = torch.searchsorted(oriented, base)
-    out_deg = torch.searchsorted(oriented, base + 4) - first_succ
+    base = _successor_base(oriented, k)
+    first_succ = _search(oriented, base)
+    out_deg = _search(oriented, (*base[:-1], base[-1] | 3), right=True) - first_succ
     del base
-    rc_vals = revcomp_packed_torch(oriented, k)
-    rc_idx = torch.searchsorted(oriented, rc_vals)
-    if not torch.equal(oriented[rc_idx.clamp(max=n - 1)], rc_vals):
+    rc_vals = _revcomp_words(oriented, k)
+    rc_idx = _search(oriented, rc_vals)
+    found = (w[rc_idx.clamp(max=n - 1)] for w in oriented)
+    if not all(torch.equal(a, b) for a, b in zip(found, rc_vals)):
         raise RuntimeError("the oriented k-mer set is not closed under reverse complement")
     del rc_vals
     in_deg = out_deg[rc_idx]
@@ -593,7 +734,12 @@ def unitig_codes_from_kmers(kmers: torch.Tensor, k: int):
     start = kept_start[seq]
     node = order[start + (pos - (k - 1)).clamp(min=0)]
     shift = (2 * (k - 1 - pos)).clamp(min=0)
-    fwd = ((oriented[node] >> shift) & 3).to(torch.uint8)
+    if len(oriented) == 1:
+        fwd = oriented[0][node] >> shift
+    else:  # the head k-mer's first k - 32 bases lie in hi
+        fwd = torch.where(shift >= 64, oriented[0][node] >> (shift - 64).clamp(min=0),
+                          oriented[1][node] >> shift.clamp(max=62))
+    fwd = (fwd & 3).to(torch.uint8)
     del node, shift, start, order, oriented
     bwd = 3 - fwd[offsets[seq] + lengths[seq] - 1 - pos]  # the reverse complement
     del pos

@@ -431,6 +431,30 @@ def test_pangenome_store_on_the_card_equals_numpy(cuda_device, k, repeats):
     assert np.array_equal(got.codes, want.codes)
 
 
+@pytest.mark.parametrize("k", [32, 33, 63])
+def test_two_word_generator_on_the_card_equals_cpu(cuda_device, k):
+    """The torch generator's two-word keys (k = 32: hi holds no base) on the
+    card against its own run on the CPU, bit for bit."""
+    case = dict(genome_length=200000, k=k, n_strains=7, mutation_rate=0.01, seed=5,
+                with_repeats=True)
+    want, want_kmers, _ = testing.make_pangenome_store(**case, device="cpu")
+    got, got_kmers, _ = testing.make_pangenome_store(**case, device=cuda_device)
+    assert got_kmers.dtype == np.dtype("V16") and np.array_equal(got_kmers, want_kmers)
+    assert np.array_equal(got.offsets, want.offsets)
+    assert np.array_equal(got.codes, want.codes)
+
+
+@pytest.mark.parametrize("k", [31, 32, 63])
+def test_spelled_kmers_on_the_card_equal_numpy(cuda_device, k):
+    """The smoke's k-mer oracle (one word and two) on the card against the
+    numpy multiset of the same sequences."""
+    store, _, _ = testing.make_pangenome_store(
+        genome_length=100000, k=k, n_strains=4, mutation_rate=0.01, seed=6, with_repeats=True)
+    got = testing.kmers_to_numpy(testing.spelled_kmers_torch(store, k, cuda_device))
+    want = testing.kmer_multiset_of_walk_seqs([store.get(i) for i in range(len(store))], k)
+    assert np.array_equal(np.sort(got), want)
+
+
 @pytest.mark.parametrize("renumber", [False, True])
 def test_greedy_renumber_runs_the_kernel_once(cuda_device, renumber):
     """``renumber=True`` on the card: one register-kernel launch and the

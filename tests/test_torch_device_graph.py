@@ -1,5 +1,5 @@
-"""The port's device graph (K5: packed adjacency + upload) against the JAX
-package's, on the same unitig graphs."""
+"""The port's device graph (K5: packed adjacency + upload) and bigraph
+build against the JAX package's, on the same unitig graphs."""
 
 import numpy as np
 import pytest
@@ -7,6 +7,7 @@ import torch
 
 from matchtigs_tpu import testing as jtesting
 from matchtigs_tpu.graph.build import build_bigraph_from_unitigs as j_build
+from matchtigs_tpu.io.sequence_store import SequenceStore as JStore
 from matchtigs_tpu.ops.device_graph import build_device_graph as j_dg
 from matchtigs_tpu_torch import testing as ttesting
 from matchtigs_tpu_torch.graph.build import build_bigraph_from_unitigs as t_build
@@ -56,3 +57,20 @@ def test_device_buffers_cached_per_device():
     store, _, k = ttesting.make_unitig_store(genome_length=3000, k=9, seed=0)
     dg = t_dg(t_build(store, k))
     assert dg.device_buffers("cpu") is dg.device_buffers(torch.device("cpu"))
+
+
+@pytest.mark.parametrize("k", [32, 33, 48, 63, 64])
+def test_bigraph_matches_jax_around_two_word_nodes(k):
+    """Node keys of 31 (one word), 32-62 (two words) and 63 bases (byte
+    rows): node ids, mirrors and edges equal the JAX package's."""
+    if k <= 63:
+        store, _, _ = ttesting.make_pangenome_store(
+            genome_length=20000, k=k, n_strains=4, mutation_rate=0.02, seed=k, with_repeats=True)
+    else:
+        store, _, _ = ttesting.make_unitig_store_strings(genome_length=400, k=k, seed=3,
+                                                         n_sequences=12)
+    got, want = t_build(store, k), j_build(JStore.from_flat(store.codes, store.offsets), k)
+    assert got.n_nodes == want.n_nodes > 0
+    assert np.array_equal(got.mirror_node, want.mirror_node)
+    for view in ("srcs", "dsts", "weights", "handles", "forwards"):
+        assert np.array_equal(getattr(got, view)(), getattr(want, view)()), view

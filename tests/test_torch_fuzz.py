@@ -30,9 +30,12 @@ from matchtigs_tpu_torch.graph.build import build_bigraph_from_unitigs as t_buil
 from matchtigs_tpu_torch.io.sequence_store import SequenceStore as TStore
 
 FUZZ_SEEDS = range(12)
-# k = 32 is left out: the two-word generator of both packages needs a base
-# in its high word (k >= 33)
+# k = 32 is drawn apart (K32_SEEDS): there the JAX package's two-word
+# generator raises (its high word holds no base), so those graphs come from
+# the port's generator alone, and the JAX package's algorithms run on a copy
+# of the port's unitigs
 FUZZ_K = (7, 8, 9, 11, 13, 15, 21, 31, 33, 47, 63)
+K32_SEEDS = range(20, 24)
 # random genomes of a few kbp branch only at small k: pangenome draws
 # (mutated strains, repeats) give bubbles and tangles at k = 21-63
 PANGENOME_SEEDS = range(12, 20)
@@ -84,6 +87,17 @@ def _pangenome_graph(seed: int):
     jstore, _, k = jtesting.make_pangenome_store(**case)
     tstore, kmers, _ = ttesting.make_pangenome_store(**case)
     return jstore, tstore, kmers, k, capacity
+
+
+def _k32_graph(seed: int):
+    """A pangenome draw at k = 32 from the port's generator, and the JAX
+    package's store over the same unitigs."""
+    rng = np.random.default_rng(seed)
+    tstore, kmers, k = ttesting.make_pangenome_store(
+        genome_length=int(rng.integers(2000, 8000)), k=32, n_strains=int(rng.integers(2, 5)),
+        mutation_rate=0.02, seed=seed, with_repeats=True)
+    jstore = JStore.from_flat(tstore.codes, tstore.offsets)
+    return jstore, tstore, kmers, k, CAPACITIES[seed % len(CAPACITIES)]
 
 
 def _edge_graph(name: str):
@@ -150,18 +164,25 @@ def test_pangenome_walks_identical_to_jax(seed, algorithm):
 
 
 @pytest.mark.parametrize("algorithm", ALGORITHMS)
+@pytest.mark.parametrize("seed", K32_SEEDS)
+def test_k32_walks_identical_to_jax(seed, algorithm):
+    _check(*_k32_graph(seed), algorithm)
+
+
+@pytest.mark.parametrize("algorithm", ALGORITHMS)
 @pytest.mark.parametrize("name", list(EDGE_GRAPHS))
 def test_edge_case_walks_identical_to_jax(name, algorithm):
     _check(*_edge_graph(name), algorithm)
 
 
 def test_draws_cover_k_and_capacities():
-    """The draws reach k = 7 and 63 and every first capacity, and the
+    """The draws reach k = 7, 32 and 63 and every first capacity, and the
     pangenome draws branch (many unitigs) past k = 31."""
     draws = [_fuzz_graph(seed) for seed in FUZZ_SEEDS]
     draws += [_pangenome_graph(seed) for seed in PANGENOME_SEEDS]
+    draws += [_k32_graph(seed) for seed in K32_SEEDS]
     ks = {d[3] for d in draws}
     caps = {d[4] for d in draws}
-    assert {7, 63} <= ks, ks
+    assert {7, 32, 63} <= ks, ks
     assert caps == set(CAPACITIES), caps
     assert any(d[3] > 31 and len(d[1]) > 50 for d in draws)
