@@ -2,10 +2,12 @@
 
 Drives the port's main paths, greedy and optimal matchtigs, through its
 CLI on the repository's flagship dataset (synthetic 10 Mbp pangenome, 7
-strains, 1% mutations, repeats, k=31), then pathtigs and eulertigs and the
-C ABI, after building every kernel from the sources in the checkout and
-holding each against its plain PyTorch version; then greedy matchtigs on
-the same pangenome at k=63 (deep balls) and on the 60 Mbp pangenome:
+strains, 1% mutations, repeats, k=31), then pathtigs and eulertigs, the
+C ABI, and the CLI from the link-annotated inputs BCALM2 and GGCAT write
+(``--bcalm-in``, ``--gfa-in``), after building every kernel from the
+sources in the checkout and holding each against its plain PyTorch
+version; then greedy matchtigs on the same pangenome at k=63 (deep balls)
+and on the 60 Mbp pangenome:
 
 - ``dataset``: the flagship made on the card
   (``testing.make_pangenome_store(device=...)``) into this run's own
@@ -39,6 +41,21 @@ the same pangenome at k=63 (deep balls) and on the 60 Mbp pangenome:
   flagship's topology as merge calls, algorithm ids 1-5 (ids 4 and 5 on
   the card: one register-kernel launch each), against
   ``TigGraphBuilder.compute_tigs`` with the host engine;
+- ``links_inputs``: the flagship's links (``testing.graph_links`` of its
+  overlap graph) written as BCALM2 and as gzipped GFA (set-up);
+- ``cli_bcalm_in``: the greedytigs CLI from fasta and from BCALM2 back to
+  back (one register-kernel launch each), the BCALM2 fasta equal to the
+  host engine's walks on the graph ``build_bigraph_from_links`` makes from
+  the links written to the file, that graph equal to the overlap graph up
+  to node numbering once the nodes no link can name are split
+  (``testing.split_linkless_nodes``), the exact k-mer set, and the
+  register kernel on the link-built graph's device sources against its
+  plain version, beside the overlap graph's;
+- ``cli_gfa_in``: one CLI run from the GFA (k from its header) writing
+  greedytigs fasta and GFA, matchtigs and eulertigs (two register-kernel
+  launches): the greedytigs fasta equal to ``cli_bcalm_in``'s, its GFA
+  read back equal to it, each output spelling the input k-mer set,
+  eulertigs each k-mer once, matchtigs no longer than greedytigs;
 - ``cli_k131``: the CLI at k=131 on a string-generated input (unpacked
   adjacency and rows);
 - ``mesh_sort_vs_plain``: the mesh's radix sort and merge-split kernels
@@ -48,9 +65,6 @@ the same pangenome at k=63 (deep balls) and on the 60 Mbp pangenome:
   card, both schedules, against the single-device stage;
 - ``mesh_accept``: the sharded acceptance sort on that mesh, and the accept
   scan over it against the host accept;
-- ``mesh_two_process``: two processes of one gloo group, both on the card,
-  run greedy matchtigs with ``use_mesh=True`` (this script with
-  ``--mesh-worker``); walks equal in both and to the host engine's;
 - ``dataset_k63``: the flagship's pangenome at k=63 made on the card
   (two-word keys), held to the JAX generator's sha256 and counts;
 - ``cli_device_k63``: the greedytigs CLI on it at first capacity 16 (one
@@ -66,14 +80,26 @@ the same pangenome at k=63 (deep balls) and on the 60 Mbp pangenome:
 - ``cli_device_60m``: the default greedytigs CLI on it (one register-kernel
   launch), its fasta equal to the host engine's walks and spelling the
   input k-mer set, and the register kernel at that shape against its plain
-  version; ``cli_matchtigs_60m``: the optimal-matchtigs CLI on it (one
-  register-kernel launch), exact k-mer set, no longer than greedy's.
+  version; ``cli_bcalm_in_60m``: the same set written as BCALM2 and the
+  greedytigs CLI from it, with ``cli_bcalm_in``'s gates and readings;
+  ``cli_matchtigs_60m``: the optimal-matchtigs CLI on it (one
+  register-kernel launch), exact k-mer set, no longer than greedy's;
+- ``mesh_two_process``, last: two processes of one gloo group, both on the
+  card, run greedy matchtigs with ``use_mesh=True`` (this script with
+  ``--mesh-worker``); walks equal in both and to the host engine's.  Once
+  a child process has used the card, ``torch.profiler`` sees few or none
+  of this process's device events, so every profiled phase comes first.
+
+Every CLI phase also prints the CLI's own INFO laps (``load_s``: read and
+graph build; ``compute_s``; ``write_s``), taken by a log handler attached
+for the run.
 
 Each kernel's ``launches`` in the kernels line is read from path runs
 with the counts set to 0 just before each: ``sssp_pool`` from
-``cli_device``, ``cli_matchtigs``, ``capi_device``, ``mesh_stage``,
-``mesh_two_process``, ``cli_device_k63``, ``cli_ladder_k63``,
-``cli_device_60m`` and ``cli_matchtigs_60m``, ``sssp_wide`` from
+``cli_device``, ``cli_matchtigs``, ``capi_device``, ``cli_bcalm_in``,
+``cli_gfa_in``, ``mesh_stage``, ``mesh_two_process``, ``cli_device_k63``,
+``cli_ladder_k63``, ``cli_device_60m``, ``cli_bcalm_in_60m`` and
+``cli_matchtigs_60m``, ``sssp_wide`` from
 ``cli_ladder``, ``cli_k131``, ``mesh_stage`` (batch) and
 ``cli_ladder_k63``, ``sssp_compact`` from the compact dispatch
 of ``compact_vs_full``, ``mesh_sort`` and ``mesh_merge_split`` from
@@ -101,7 +127,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import gzip
 import hashlib
 import json
 import logging
@@ -246,6 +271,29 @@ def device_ms(fn, reps: int = 5) -> tuple[float, dict, list]:
     totals = sorted(sum(ms for _, ms, _ in x) for x in complete)
     order = [sum(x[i][1] for x in complete) / len(complete) for i in range(full)]
     return totals[len(totals) // 2], by_name, order
+
+
+def device_ops(fn) -> int:
+    """Device operations (kernels, memsets, copies) one call of ``fn``
+    enqueues: the nodes of a CUDA graph captured around the call, read
+    through libcuda.  Unlike the profiler's count it does not rest on CUPTI
+    delivering the call's events, which it sometimes does not."""
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    fn()
+    torch.cuda.synchronize()
+    graph, cu_graph, nodes = torch.cuda.CUDAGraph(), ctypes.c_void_p(), ctypes.c_size_t()
+    status, capture_id = ctypes.c_int(), ctypes.c_uint64()
+    deps, n_deps = ctypes.c_void_p(), ctypes.c_size_t()
+    with torch.cuda.graph(graph):
+        fn()
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        rc = libcuda.cuStreamGetCaptureInfo_v2(
+            stream, ctypes.byref(status), ctypes.byref(capture_id), ctypes.byref(cu_graph),
+            ctypes.byref(deps), ctypes.byref(n_deps))
+        rc = rc or libcuda.cuGraphGetNodes(cu_graph, None, ctypes.byref(nodes))
+    del graph
+    check(rc == 0, f"reading the captured graph failed: CUresult {rc}")
+    return nodes.value
 
 
 BUSY_EVENTS = "(no profiler events; CUDA events behind a fill)"
@@ -422,9 +470,10 @@ def pool_reading(sssp, adj, src, max_weight: int, deg: int,
                  capacity: int = CAPACITY) -> tuple:
     """``pool_sssp`` at ``capacity`` on ``src`` (the register kernel at C in
     ``sssp.CAPACITIES``, else the wide kernel): (rows, flags, fields), the
-    fields being its event, device and host-enqueue times, the plain
-    version's time on the card and the mismatches against it, the overflow
-    share and the bound."""
+    fields being its event, device and host-enqueue times, the device
+    operations one call enqueues (``device_ops``), the plain version's time
+    on the card and the mismatches against it, the overflow share and the
+    bound."""
     def run():
         return sssp.pool_sssp(adj, src, max_weight, capacity)
     fields = dict(sources=len(src), capacity=capacity, kernel_ms=kernel_ms(run))
@@ -432,9 +481,9 @@ def pool_reading(sssp, adj, src, max_weight: int, deg: int,
     want, fields["plain_on_gpu_ms"] = plain_ms(
         lambda: sssp.pool_sssp_plain(adj, src, max_weight, capacity))
     fields["bound_ms"], fields["bound_by"] = search_bound(adj, src, key, over, deg)
-    device, breakdown, ops = device_ms(run)
+    device, breakdown, _ = device_ms(run)
     fields.update(kernel_device_ms=device, kernel_device_breakdown_ms=breakdown,
-                  kernel_device_ops=len(ops), host_enqueue_ms=host_ms(run),
+                  kernel_device_ops=device_ops(run), host_enqueue_ms=host_ms(run),
                   overflow_frac=float(over.float().mean()),
                   **row_mismatches((key, None, over), want))
     return key, over, fields
@@ -443,17 +492,6 @@ def pool_reading(sssp, adj, src, max_weight: int, deg: int,
 def check(ok: bool, message: str) -> None:
     if not ok:
         raise SystemExit(message)
-
-
-def write_fasta(path: Path, store) -> None:
-    """``store`` as gzipped fasta, records ``>i``: the bases decoded in one
-    pass and written in one call."""
-    from matchtigs_tpu_torch.utils import dna
-
-    seq, off = dna.decode_to_ascii(store.codes), store.offsets
-    with gzip.open(path, "wb", compresslevel=1) as f:
-        f.write(b"".join(b">%d\n%s\n" % (i, seq[off[i]:off[i + 1]])
-                         for i in range(len(store))))
 
 
 def spelled_kmer_set(store, k: int, device) -> np.ndarray:
@@ -467,27 +505,38 @@ def spelled_kmer_set(store, k: int, device) -> np.ndarray:
 
 
 class LogCapture(logging.Handler):
-    """Records of one logger, kept while a ``with`` block runs at INFO level
-    and not passed on to the root's handlers."""
+    """Records of the named loggers, kept while a ``with`` block runs at INFO
+    level and not passed on to the root's handlers.  Loggers below them
+    that inherit their level keep the level they had, so they log (and
+    compute) no more than before."""
 
-    def __init__(self, name: str):
+    def __init__(self, *names: str):
         super().__init__(logging.INFO)
-        self.logger, self.records = logging.getLogger(name), []
+        self.loggers, self.records = [logging.getLogger(n) for n in names], []
 
     def emit(self, record) -> None:
         self.records.append(record)
 
     def __enter__(self):
-        self.saved = self.logger.level, self.logger.propagate
-        self.logger.setLevel(logging.INFO)
-        self.logger.propagate = False
-        self.logger.addHandler(self)
+        names = [lg.name for lg in self.loggers]
+        below = [lg for name, lg in list(logging.Logger.manager.loggerDict.items())
+                 if isinstance(lg, logging.Logger) and lg.level == logging.NOTSET
+                 and name not in names and any(name.startswith(n + ".") for n in names)]
+        self.saved = [(lg, lg.level, lg.propagate) for lg in below + self.loggers]
+        for lg in below:
+            lg.setLevel(lg.getEffectiveLevel())
+        for lg in self.loggers:
+            lg.setLevel(logging.INFO)
+            lg.propagate = False
+            lg.addHandler(self)
         return self
 
     def __exit__(self, *exc) -> None:
-        self.logger.removeHandler(self)
-        self.logger.setLevel(self.saved[0])
-        self.logger.propagate = self.saved[1]
+        for lg in self.loggers:
+            lg.removeHandler(self)
+        for lg, level, propagate in self.saved:
+            lg.setLevel(level)
+            lg.propagate = propagate
 
     def args(self, msg: str) -> list:
         """The arguments of every record whose format string is ``msg``."""
@@ -551,7 +600,6 @@ def smoke(args, data_dir: Path) -> int:
     from matchtigs_tpu_torch.algos.greedytigs import (
         GreedytigConfig, SearchStats, compute_greedytigs,
     )
-    from matchtigs_tpu_torch.cli import main as cli_main
     from matchtigs_tpu_torch.graph.build import build_bigraph_from_unitigs
     from matchtigs_tpu_torch.io.readers import read_fasta
     from matchtigs_tpu_torch.io.writers import spell_walks_flat, write_walks_fasta
@@ -766,15 +814,15 @@ def smoke(args, data_dir: Path) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.monotonic()
         fa_in = Path(tmp) / "unitigs.fa.gz"
-        write_fasta(fa_in, store)
-        rc, launches, cli_s, out_store = run_cli(fa_in, k)
+        testing.write_fasta(fa_in, store)
+        rc, launches, cli_s, out_store, laps = run_cli(fa_in, k)
         check(rc == 0 and launches == ONE_POOL_LAUNCH,
               f"CLI rc {rc}, kernel launches {launches}")
         cli_tigs, cli_len = len(out_store), int(out_store.offsets[-1])
         got = spelled_kmer_set(out_store, k, device)
         check(np.array_equal(got, want_kmers),
               f"CLI output spells {len(got)} k-mers, input has {len(want_kmers)}")
-        phase("cli_device", seconds=time.monotonic() - t0, cli_s=cli_s,
+        phase("cli_device", seconds=time.monotonic() - t0, cli_s=cli_s, **laps,
               kernel_launches=launches["sssp_pool"],
               launches=launches, tigs=cli_tigs, cumulative_length=cli_len,
               kmer_set_equal=True)
@@ -825,13 +873,13 @@ def smoke(args, data_dir: Path) -> int:
         stats = SearchStats()
         compute_greedytigs(g.copy(), GreedytigConfig(k=k, overflow_mode="ladder"), stats)
         capacities = [CAPACITY * 4 ** i for i in range(len(stats.stage_sources))]
-        rc, launches, ladder_s, out_store = run_cli(
+        rc, launches, ladder_s, out_store, laps = run_cli(
             fa_in, k, "--sssp-overflow-mode", "ladder"
         )
         check(rc == 0, f"ladder CLI rc {rc}")
         n_tigs, n_len = len(out_store), int(out_store.offsets[-1])
         got = spelled_kmer_set(out_store, k, device)
-        phase("cli_ladder", seconds=time.monotonic() - t0, cli_s=ladder_s,
+        phase("cli_ladder", seconds=time.monotonic() - t0, cli_s=ladder_s, **laps,
               max_ball=max_ball, stage_capacities=capacities,
               stage_sources=stats.stage_sources,
               stage_kernel_ms=[1e3 * s for s in stats.stage_kernel_times],
@@ -848,7 +896,7 @@ def smoke(args, data_dir: Path) -> int:
         t0 = time.monotonic()
         bv_out, prefix = Path(tmp) / "matchtigs.bv", Path(tmp) / "instance"
         with LogCapture("matchtigs_tpu_torch.algos.matchtigs") as log:
-            rc, launches, mt_s, out_store = run_cli(
+            rc, launches, mt_s, out_store, cli_laps = run_cli(
                 fa_in, k, "--matchtigs-duplication-bitvector-out", str(bv_out),
                 "--matching-file-prefix", str(prefix), out_flag="--matchtigs-fa-out")
         check(rc == 0 and launches == ONE_POOL_LAUNCH,
@@ -878,7 +926,7 @@ def smoke(args, data_dir: Path) -> int:
         d_mt, d_mt_s, _ = mt_runs["device"]
         same_walks = (np.array_equal(d_mt.flat, h_mt.flat)
                       and np.array_equal(d_mt.offsets, h_mt.offsets))
-        phase("cli_matchtigs", seconds=time.monotonic() - t0, cli_s=mt_s,
+        phase("cli_matchtigs", seconds=time.monotonic() - t0, cli_s=mt_s, **cli_laps,
               candidates=log.args("Found %d candidate shortest paths")[0][0],
               matching_ids=n_ids, matching_edges=n_edges,
               matched_pairs=matched,
@@ -905,13 +953,9 @@ def smoke(args, data_dir: Path) -> int:
         # 9. Pathtigs and eulertigs: one CLI run, host-only
         t0 = time.monotonic()
         outs = {algo: Path(tmp) / f"{algo}.fa" for algo in ("pathtigs", "eulertigs")}
-        sssp.reset_kernel_launches()
-        t = time.monotonic()
-        rc = cli_main(["--fa-in", str(fa_in), "-k", str(k), "--log-level", "Warning",
-                       *(a for algo, path in outs.items()
-                         for a in (f"--{algo}-fa-out", str(path)))])
-        pe_s = time.monotonic() - t
-        launches = dict(sssp.KERNEL_LAUNCHES)
+        rc, launches, pe_s, _, laps = run_cli(
+            fa_in, k, *(a for algo, path in outs.items() for a in (f"--{algo}-fa-out", str(path))),
+            out_flag=None)
         check(rc == 0 and not any(launches.values()),
               f"pathtigs/eulertigs CLI rc {rc}, kernel launches {launches}")
         pe = {}
@@ -923,7 +967,7 @@ def smoke(args, data_dir: Path) -> int:
                             kmers=len(spelled),
                             each_kmer_once=len(spelled) == len(unique)
                             and bool(np.array_equal(unique, want_kmers)))
-        phase("cli_pathtigs_eulertigs", seconds=time.monotonic() - t0, cli_s=pe_s,
+        phase("cli_pathtigs_eulertigs", seconds=time.monotonic() - t0, cli_s=pe_s, **laps,
               launches=launches, **pe)
         check(all(r["each_kmer_once"] for r in pe.values()),
               f"pathtigs/eulertigs do not spell every k-mer exactly once: {pe}")
@@ -997,6 +1041,11 @@ def smoke(args, data_dir: Path) -> int:
               launches={c["algo"]: c["launches"]["sssp_pool"] for c in capi})
         del ref, ref_graph, rows, merges
 
+        # 10b. The link inputs: the flagship written as BCALM2 and GFA, and
+        # the CLI from each
+        pool_launches += link_inputs(store, g, k, want_kmers, fa_in, device, checks,
+                                     overlap=pool, greedy=(cli_tigs, cli_len))
+
     # 11. k=131 on a string-generated input: the unpacked layouts
     t0 = time.monotonic()
     kstore, kset, kk = testing.make_unitig_store_strings(
@@ -1008,14 +1057,14 @@ def smoke(args, data_dir: Path) -> int:
     _, hoff = spell_walks_flat(hg, host, kstore, kk)
     with tempfile.TemporaryDirectory() as tmp:
         fa_in = Path(tmp) / "unitigs.fa.gz"
-        write_fasta(fa_in, kstore)
-        rc, launches, k131_s, out_store = run_cli(fa_in, kk)
+        testing.write_fasta(fa_in, kstore)
+        rc, launches, k131_s, out_store, laps = run_cli(fa_in, kk)
     check(rc == 0, f"k=131 CLI rc {rc}")
     seqs = [out_store.get_ascii(i).decode() for i in range(len(out_store))]
     rc_table = str.maketrans("ACGT", "TGCA")
     spelled = {min(s[j:j + kk], s[j:j + kk][::-1].translate(rc_table))
                for s in seqs for j in range(len(s) - kk + 1)}
-    phase("cli_k131", seconds=time.monotonic() - t0, cli_s=k131_s,
+    phase("cli_k131", seconds=time.monotonic() - t0, cli_s=k131_s, **laps,
           unitigs=len(kstore), launches=launches, tigs=len(out_store),
           cumulative_length=int(out_store.offsets[-1]), host_tigs=len(host),
           host_len=int(hoff[-1]), kmer_set_equal=spelled == kset)
@@ -1172,8 +1221,24 @@ def smoke(args, data_dir: Path) -> int:
     check(sort_equal and accept_equal, "the mesh accept differs from the host accept")
     del chunks, sorted_keys, acc_mesh, acc_host
 
-    # 15. Two processes of one gloo group, both on the card, on the
-    # flagship cached above
+    # 15. Deep balls: the flagship's pangenome at k=63, generated on the
+    # card, and the greedytigs CLI on it at first capacity 16, then with the
+    # ladder
+    del g, dg, store, kmers, want_kmers, adj, src, over_sources, nbr, nw, shards, keys, padded
+    torch.cuda.empty_cache()
+    k63_launches = deep_balls(args, device, checks, wide)
+    pool_launches += k63_launches["sssp_pool"]
+    wide_launches += k63_launches["sssp_wide"]
+    torch.cuda.empty_cache()
+
+    # 16. The 60 Mbp pangenome, generated on the card, then the default
+    # greedytigs CLI from fasta and from BCALM2 and the optimal-matchtigs
+    # CLI on it
+    pool_launches += scale60m(args, device, checks)
+
+    # 17. Two processes of one gloo group, both on the card, on the
+    # flagship cached above.  Last: once a child process has used the card,
+    # the profiler sees few or none of this process's device events.
     t0 = time.monotonic()
     workers = run_mesh_workers(args.genome_length, data_dir)
     w_launches = [json.loads(str(w["launches"])) for w in workers]
@@ -1188,20 +1253,6 @@ def smoke(args, data_dir: Path) -> int:
     check(same and same_host, "two-process walks differ across ranks or from the host engine")
     check(all(w["mesh_sort"] > 0 and w["mesh_merge_split"] > 0 and w["sssp_pool"] > 0
               for w in w_launches), f"two-process launches {w_launches}")
-
-    # 16. Deep balls: the flagship's pangenome at k=63, generated on the
-    # card, and the greedytigs CLI on it at first capacity 16, then with the
-    # ladder
-    del g, dg, store, kmers, want_kmers, adj, src, over_sources, nbr, nw, shards, keys, padded
-    torch.cuda.empty_cache()
-    k63_launches = deep_balls(args, device, checks, wide)
-    pool_launches += k63_launches["sssp_pool"]
-    wide_launches += k63_launches["sssp_wide"]
-    torch.cuda.empty_cache()
-
-    # 17. The 60 Mbp pangenome, generated on the card, then the default
-    # greedytigs and the optimal-matchtigs CLI on it
-    pool_launches += scale60m(args, device, checks)
 
     phase("total", seconds=time.monotonic() - t_start)
     print(json.dumps({"kernels": [
@@ -1288,10 +1339,7 @@ def make_dataset(genome_length: int, device, cache_dir: Path | None = None, k: i
     fields being the generation seconds, peak device memory, sha256, graph
     build seconds, counts and the process's peak host memory."""
     from matchtigs_tpu_torch import testing
-    from matchtigs_tpu_torch.algos.greedytigs import GreedytigConfig, split_device_sources
     from matchtigs_tpu_torch.graph.build import build_bigraph_from_unitigs
-    from matchtigs_tpu_torch.ops.device_graph import build_device_graph
-    from matchtigs_tpu_torch.ops.matching import unbalanced_nodes
 
     t = time.monotonic()
     torch.cuda.reset_peak_memory_stats()
@@ -1306,15 +1354,25 @@ def make_dataset(genome_length: int, device, cache_dir: Path | None = None, k: i
     t = time.monotonic()
     g = build_bigraph_from_unitigs(store, k)
     fields["graph_s"] = time.monotonic() - t
+    dg, unbalanced, pending, host_routed = device_sources(g)
+    fields.update(unitigs=len(store), bases=int(store.offsets[-1]), kmers=len(kmers),
+                  nodes=g.n_nodes, sources=len(unbalanced[0]), device_sources=len(pending),
+                  host_routed=host_routed, peak_host_rss_gib=peak_rss_gib())
+    return store, kmers, g, dg, unbalanced, pending, fields
+
+
+def device_sources(g):
+    """(device graph, (out_nodes, in_mask, mult), device sources,
+    host-routed count) of ``g``, split as the greedy stage splits them."""
+    from matchtigs_tpu_torch.algos.greedytigs import GreedytigConfig, split_device_sources
+    from matchtigs_tpu_torch.ops.device_graph import build_device_graph
+    from matchtigs_tpu_torch.ops.matching import unbalanced_nodes
+
     unbalanced = unbalanced_nodes(g)
     dg = build_device_graph(g)
     pending, hard = split_device_sources(
         dg, unbalanced[0], GreedytigConfig.host_route_threshold)
-    fields.update(unitigs=len(store), bases=int(store.offsets[-1]), kmers=len(kmers),
-                  nodes=g.n_nodes, sources=len(unbalanced[0]), device_sources=len(pending),
-                  host_routed=0 if hard is None else len(hard),
-                  peak_host_rss_gib=peak_rss_gib())
-    return store, kmers, g, dg, unbalanced, pending, fields
+    return dg, unbalanced, pending, 0 if hard is None else len(hard)
 
 
 def deep_balls(args, device, checks: list, wide: list) -> dict:
@@ -1329,6 +1387,7 @@ def deep_balls(args, device, checks: list, wide: list) -> dict:
     from matchtigs_tpu_torch.algos.greedytigs import (
         GreedytigConfig, SearchStats, compute_greedytigs,
     )
+    from matchtigs_tpu_torch import testing
     from matchtigs_tpu_torch.io.writers import write_walks_fasta
     from matchtigs_tpu_torch.ops import sssp
 
@@ -1348,9 +1407,9 @@ def deep_balls(args, device, checks: list, wide: list) -> dict:
         t0 = time.monotonic()
         fa_in, fa_out, host_out = (Path(tmp) / f for f in ("unitigs.fa.gz", "out.fa", "host.fa"))
         t = time.monotonic()
-        write_fasta(fa_in, store)
+        testing.write_fasta(fa_in, store)
         write_s = time.monotonic() - t
-        rc, launches, cli_s, out_store = run_cli(fa_in, k, *first_capacity)
+        rc, launches, cli_s, out_store, laps = run_cli(fa_in, k, *first_capacity)
         check(rc == 0 and launches == ONE_POOL_LAUNCH,
               f"k=63 CLI rc {rc}, kernel launches {launches}")
         tigs, length = len(out_store), int(out_store.offsets[-1])
@@ -1376,7 +1435,7 @@ def deep_balls(args, device, checks: list, wide: list) -> dict:
         first = compare(sssp, dg, pending[:N_FLAGSHIP_CHECK], k - 1, K63_CAPACITY, device)
         checks += [pool, first]
         phase("cli_device_k63", seconds=time.monotonic() - t0, write_fasta_s=write_s,
-              cli_s=cli_s, launches=launches, tigs=tigs, cumulative_length=length,
+              cli_s=cli_s, **laps, launches=launches, tigs=tigs, cumulative_length=length,
               host_engine_s=host_s, fasta_equal_host=fasta_equal, kmer_set_equal=kmer_equal,
               registers_and_spilled_bytes=sssp.pool_kernel_attributes(K63_CAPACITY),
               first_sources_vs_plain_on_host=first, peak_host_rss_gib=peak_rss_gib(), **pool)
@@ -1392,7 +1451,7 @@ def deep_balls(args, device, checks: list, wide: list) -> dict:
 
         # the ladder: the CLI, then a library run for its stages
         t0 = time.monotonic()
-        rc, launches, ladder_s, out_store = run_cli(
+        rc, launches, ladder_s, out_store, laps = run_cli(
             fa_in, k, *first_capacity, "--sssp-overflow-mode", "ladder")
         check(rc == 0, f"k=63 ladder CLI rc {rc}")
         ladder_tigs, ladder_len = len(out_store), int(out_store.offsets[-1])
@@ -1411,7 +1470,7 @@ def deep_balls(args, device, checks: list, wide: list) -> dict:
             rows, over, r = pool_reading(sssp, adj, over_sources, k - 1, dg.deg_pad, cap)
             readings.append(r)
         wide += readings
-        phase("cli_ladder_k63", seconds=time.monotonic() - t0, cli_s=ladder_s,
+        phase("cli_ladder_k63", seconds=time.monotonic() - t0, cli_s=ladder_s, **laps,
               launches=launches, stage_capacities=capacities,
               stage_sources=stats.stage_sources,
               stage_kernel_ms=[1e3 * x for x in stats.stage_kernel_times],
@@ -1429,13 +1488,161 @@ def deep_balls(args, device, checks: list, wide: list) -> dict:
     return launched
 
 
+def link_inputs(store, g, k: int, want_kmers: np.ndarray, fa_in: Path, device,
+                checks: list, overlap: dict, greedy: tuple) -> int:
+    """The phases ``links_inputs``, ``cli_bcalm_in`` and ``cli_gfa_in`` on
+    the flagship (``store``, its overlap graph ``g``, the gzipped fasta
+    ``fa_in``): its links written as BCALM2 and as gzipped GFA beside
+    ``fa_in``, the greedytigs CLI from fasta and from BCALM2 back to back,
+    then one CLI run from GFA writing greedytigs fasta and GFA, matchtigs
+    and eulertigs, each held to its gates; ``overlap`` is the overlap
+    graph's ``pool_reading`` and ``greedy`` the fasta CLI's (tigs, length)
+    from ``cli_device``.  ``sssp_pool``'s reading on the link-built graph
+    is appended to ``checks``.  Returns the CLI runs' ``sssp_pool``
+    launches."""
+    from matchtigs_tpu_torch import testing
+    from matchtigs_tpu_torch.io.readers import read_fasta, read_gfa
+
+    tmp = fa_in.parent
+    t0 = time.monotonic()
+    t = time.monotonic()
+    links = testing.graph_links(g)
+    links_s = time.monotonic() - t
+    bcalm_in, gfa_in = tmp / "unitigs.bcalm.fa", tmp / "unitigs.gfa.gz"
+    t = time.monotonic()
+    testing.write_bcalm2(bcalm_in, store, links)
+    bcalm_s = time.monotonic() - t
+    t = time.monotonic()
+    testing.write_gfa(gfa_in, store, links, k)
+    gfa_s = time.monotonic() - t
+    phase("links_inputs", seconds=time.monotonic() - t0, unitigs=len(store),
+          links=len(links), links_per_unitig=len(links) / len(store), graph_links_s=links_s,
+          write_bcalm2_s=bcalm_s, write_gfa_s=gfa_s, fasta_gz_bytes=fa_in.stat().st_size,
+          bcalm2_bytes=bcalm_in.stat().st_size, gfa_gz_bytes=gfa_in.stat().st_size)
+
+    # the fasta and the BCALM2 CLI back to back, then the gates on the
+    # BCALM2 run
+    t0 = time.monotonic()
+    runs = {}
+    for flag, path in (("--fa-in", fa_in), ("--bcalm-in", bcalm_in)):
+        rc, launches, cli_s, out_store, laps = run_cli(path, k, in_flag=flag)
+        check(rc == 0 and launches == ONE_POOL_LAUNCH,
+              f"{flag} CLI rc {rc}, kernel launches {launches}")
+        runs[flag] = dict(cli_s=cli_s, **laps, tigs=len(out_store),
+                          cumulative_length=int(out_store.offsets[-1]))
+    cli_fasta = (tmp / "out.fa").read_bytes()
+    bcalm_digest = hashlib.sha256(cli_fasta).hexdigest()
+    kmer_equal = bool(np.array_equal(spelled_kmer_set(out_store, k, device), want_kmers))
+    del out_store
+    link = link_graph_reading(store, links, k, g, cli_fasta, tmp, device, checks)
+    del cli_fasta, links
+    bcalm = runs["--bcalm-in"]
+    phase("cli_bcalm_in", seconds=time.monotonic() - t0, fa_in=runs["--fa-in"], bcalm_in=bcalm,
+          launches=launches, kmer_set_equal=kmer_equal, **link,
+          overlap_kernel_device_ms=overlap["kernel_device_ms"],
+          overlap_bound_ms=overlap["bound_ms"], overlap_sources=overlap["sources"],
+          cli_device_tigs=greedy[0], cli_device_cumulative_length=greedy[1],
+          tigs_minus_cli_device=bcalm["tigs"] - greedy[0],
+          length_minus_cli_device=bcalm["cumulative_length"] - greedy[1])
+    check(kmer_equal and link["same_graph_up_to_node_ids"] and link["fasta_equal_host"],
+          f"BCALM2 CLI: k-mer set equal {kmer_equal}, {link}")
+    check(not (link["pool"]["flag_mismatch"] or link["pool"]["row_mismatch"]),
+          "the register kernel disagrees with its plain version on the link-built graph")
+    launched = 2
+
+    # one GFA run (k from its header) writing four outputs
+    t0 = time.monotonic()
+    outs = {name: tmp / f"gfa_in.{name}" for name in
+            ("greedytigs-fa", "greedytigs-gfa", "matchtigs-fa", "eulertigs-fa")}
+    rc, launches, cli_s, _, laps = run_cli(
+        gfa_in, None, *(a for name, path in outs.items() for a in (f"--{name}-out", str(path))),
+        in_flag="--gfa-in", out_flag=None)
+    check(rc == 0 and launches == dict(ONE_POOL_LAUNCH, sssp_pool=2),
+          f"GFA CLI rc {rc}, kernel launches {launches}")
+    launched += launches["sssp_pool"]
+    greedy_equal = hashlib.sha256(outs["greedytigs-fa"].read_bytes()).hexdigest() == bcalm_digest
+    written = {}
+    for name in ("greedytigs-fa", "matchtigs-fa", "eulertigs-fa"):
+        out_store = read_fasta(outs[name])[0]
+        spelled = testing.spelled_kmers_torch(out_store, k, device)
+        unique = testing.kmers_to_numpy(testing.sorted_unique_kmers(spelled, k))
+        written[name] = dict(tigs=len(out_store), cumulative_length=int(out_store.offsets[-1]),
+                             kmers=len(spelled),
+                             kmer_set_equal=bool(np.array_equal(unique, want_kmers)))
+        if name == "greedytigs-fa":
+            gfa_store = read_gfa(outs["greedytigs-gfa"])[0]
+            gfa_equal = (np.array_equal(gfa_store.offsets, out_store.offsets)
+                         and np.array_equal(gfa_store.packed, out_store.packed))
+        del out_store, spelled, unique
+    euler_once = written["eulertigs-fa"]["kmers"] == len(want_kmers)
+    shorter = (written["matchtigs-fa"]["cumulative_length"]
+               <= written["greedytigs-fa"]["cumulative_length"])
+    phase("cli_gfa_in", seconds=time.monotonic() - t0, cli_s=cli_s, **laps, launches=launches,
+          outputs=written, greedy_fasta_equal_bcalm_in=greedy_equal,
+          greedy_gfa_equal_fasta=gfa_equal, eulertigs_each_kmer_once=euler_once,
+          matchtigs_no_longer=shorter)
+    check(greedy_equal and gfa_equal and euler_once and shorter
+          and all(w["kmer_set_equal"] for w in written.values()),
+          f"GFA CLI outputs: greedy fasta equal to BCALM2's {greedy_equal}, GFA equal to "
+          f"its fasta {gfa_equal}, eulertigs once {euler_once}, matchtigs no longer "
+          f"{shorter}, {written}")
+    for path in (bcalm_in, gfa_in, *outs.values()):
+        path.unlink()
+    return launched
+
+
+def link_graph_reading(store, links, k: int, g, cli_fasta: bytes, tmp: Path, device,
+                       checks: list) -> dict:
+    """The graph ``build_bigraph_from_links`` makes from ``links`` (those
+    written to the file the CLI read): whether it is ``g`` up to node
+    numbering once the nodes no link names are split
+    (``testing.split_linkless_nodes``; how many more nodes that makes, and
+    whether it is ``g`` itself), whether the host engine's walks on it
+    write ``cli_fasta``, and ``pool_reading`` of ``sssp_pool`` on its
+    device sources (appended to ``checks``)."""
+    from matchtigs_tpu_torch import testing
+    from matchtigs_tpu_torch.algos.greedytigs import GreedytigConfig, compute_greedytigs
+    from matchtigs_tpu_torch.graph.build import build_bigraph_from_links
+    from matchtigs_tpu_torch.io.writers import write_walks_fasta
+    from matchtigs_tpu_torch.ops import sssp
+
+    t = time.monotonic()
+    gl = build_bigraph_from_links(store, links, k)
+    build_s = time.monotonic() - t
+    split = testing.split_linkless_nodes(g)
+    same = testing.same_graph_up_to_node_ids(split, gl)
+    split_nodes = split.n_nodes - g.n_nodes
+    same_unsplit = testing.same_graph_up_to_node_ids(g, gl)
+    del split
+    t = time.monotonic()
+    hg = gl.copy()
+    host = compute_greedytigs(hg, GreedytigConfig(k=k, engine="host"))
+    host_s = time.monotonic() - t
+    host_out = tmp / "host.fa"
+    write_walks_fasta(hg, host, store, k, host_out)
+    fasta_equal = host_out.read_bytes() == cli_fasta
+    host_out.unlink()
+    del hg, host
+    dg, _, pending, host_routed = device_sources(gl)
+    _, _, pool = pool_reading(sssp, dg.device_buffers(device),
+                              torch.from_numpy(pending).to(device), k - 1, dg.deg_pad)
+    checks.append(pool)
+    return dict(link_build_s=build_s, same_graph_up_to_node_ids=same,
+                linkless_split_nodes=split_nodes, same_graph_unsplit=same_unsplit,
+                host_engine_s=host_s, fasta_equal_host=fasta_equal, nodes=gl.n_nodes,
+                device_sources=len(pending), host_routed=host_routed, pool=pool,
+                peak_host_rss_gib=peak_rss_gib())
+
+
 def scale60m(args, device, checks: list) -> int:
-    """The phases ``dataset_60m``, ``cli_device_60m`` and
-    ``cli_matchtigs_60m``: the 60 Mbp pangenome (six times
-    ``--genome-length``) made on the card, the CLI runs on it held to the
-    host engine and to the input k-mer set, and the register kernel at its
-    shape held to its plain version (appended to ``checks``).  Returns the
-    CLI runs' ``sssp_pool`` launches."""
+    """The phases ``dataset_60m``, ``cli_device_60m``, ``cli_bcalm_in_60m``
+    and ``cli_matchtigs_60m``: the 60 Mbp pangenome (six times
+    ``--genome-length``) made on the card, the CLI runs on it (from fasta,
+    then from the same set as BCALM2) held to the host engine and to the
+    input k-mer set, and the register kernel at its shape, on the overlap
+    graph and on the link-built graph, held to its plain version (appended
+    to ``checks``).  Returns the CLI runs' ``sssp_pool`` launches."""
+    from matchtigs_tpu_torch import testing
     from matchtigs_tpu_torch.algos.greedytigs import GreedytigConfig, compute_greedytigs
     from matchtigs_tpu_torch.io.writers import write_walks_fasta
     from matchtigs_tpu_torch.ops import sssp
@@ -1457,9 +1664,9 @@ def scale60m(args, device, checks: list) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         fa_in, fa_out = Path(tmp) / "unitigs.fa.gz", Path(tmp) / "out.fa"
         t = time.monotonic()
-        write_fasta(fa_in, store)
+        testing.write_fasta(fa_in, store)
         write_s = time.monotonic() - t
-        rc, launches, cli_s, out_store = run_cli(fa_in, k)
+        rc, launches, cli_s, out_store, laps = run_cli(fa_in, k)
         check(rc == 0 and launches == ONE_POOL_LAUNCH,
               f"60M CLI rc {rc}, kernel launches {launches}")
         launched += launches["sssp_pool"]
@@ -1480,7 +1687,7 @@ def scale60m(args, device, checks: list) -> int:
                                   torch.from_numpy(pending).to(device), k - 1, dg.deg_pad)
         checks.append(pool)
         phase("cli_device_60m", seconds=time.monotonic() - t0, write_fasta_s=write_s,
-              cli_s=cli_s, launches=launches, tigs=tigs, cumulative_length=length,
+              cli_s=cli_s, **laps, launches=launches, tigs=tigs, cumulative_length=length,
               baseline_md_tigs=1_033_578, host_engine_s=host_s,
               fasta_equal_host=fasta_equal, kmer_set_equal=kmer_equal,
               peak_host_rss_gib=peak_rss_gib(), **pool)
@@ -1489,15 +1696,51 @@ def scale60m(args, device, checks: list) -> int:
               f"k-mer set equal {kmer_equal}")
         check(not (pool["flag_mismatch"] or pool["row_mismatch"]),
               "kernel disagrees with its plain version at the 60M shape")
+        fa_cli = dict(cli_s=cli_s, **laps, tigs=tigs, cumulative_length=length)
+        overlap = {f: pool[f] for f in ("kernel_device_ms", "bound_ms", "sources")}
+        del pool
+
+        # the same set as BCALM2, and the greedytigs CLI from it
+        t0 = time.monotonic()
+        bcalm_in = Path(tmp) / "unitigs.bcalm.fa"
+        t = time.monotonic()
+        links = testing.graph_links(g)
+        n_links, links_s = len(links), time.monotonic() - t
+        t = time.monotonic()
+        testing.write_bcalm2(bcalm_in, store, links)
+        bcalm_s = time.monotonic() - t
+        rc, launches, cli_s, out_store, laps = run_cli(bcalm_in, k, in_flag="--bcalm-in")
+        check(rc == 0 and launches == ONE_POOL_LAUNCH,
+              f"60M BCALM2 CLI rc {rc}, kernel launches {launches}")
+        launched += launches["sssp_pool"]
+        bcalm_cli = dict(cli_s=cli_s, **laps, tigs=len(out_store),
+                         cumulative_length=int(out_store.offsets[-1]))
+        kmer_equal = bool(np.array_equal(spelled_kmer_set(out_store, k, device), kmers))
+        del out_store
+        link = link_graph_reading(store, links, k, g, fa_out.read_bytes(), Path(tmp), device,
+                                  checks)
+        del links
+        phase("cli_bcalm_in_60m", seconds=time.monotonic() - t0, links=n_links,
+              graph_links_s=links_s, write_bcalm2_s=bcalm_s,
+              bcalm2_bytes=bcalm_in.stat().st_size, bcalm_in=bcalm_cli, fa_in=fa_cli,
+              launches=launches, kmer_set_equal=kmer_equal, **link,
+              overlap_kernel_device_ms=overlap["kernel_device_ms"],
+              overlap_bound_ms=overlap["bound_ms"], overlap_sources=overlap["sources"])
+        check(kmer_equal and link["same_graph_up_to_node_ids"] and link["fasta_equal_host"],
+              f"60M BCALM2 CLI: k-mer set equal {kmer_equal}, {link}")
+        check(not (link["pool"]["flag_mismatch"] or link["pool"]["row_mismatch"]),
+              "kernel disagrees with its plain version on the 60M link-built graph")
+        bcalm_in.unlink()
+        del link
 
         t0 = time.monotonic()
-        rc, launches, mt_s, out_store = run_cli(fa_in, k, out_flag="--matchtigs-fa-out")
+        rc, launches, mt_s, out_store, laps = run_cli(fa_in, k, out_flag="--matchtigs-fa-out")
         check(rc == 0 and launches == ONE_POOL_LAUNCH,
               f"60M matchtigs CLI rc {rc}, kernel launches {launches}")
         launched += launches["sssp_pool"]
         mt_tigs, mt_len = len(out_store), int(out_store.offsets[-1])
         mt_equal = bool(np.array_equal(spelled_kmer_set(out_store, k, device), kmers))
-        phase("cli_matchtigs_60m", seconds=time.monotonic() - t0, cli_s=mt_s,
+        phase("cli_matchtigs_60m", seconds=time.monotonic() - t0, cli_s=mt_s, **laps,
               launches=launches, tigs=mt_tigs, cumulative_length=mt_len,
               greedy_tigs=tigs, greedy_cumulative_length=length,
               kmer_set_equal=mt_equal, peak_host_rss_gib=peak_rss_gib())
@@ -1507,22 +1750,44 @@ def scale60m(args, device, checks: list) -> int:
     return launched
 
 
-def run_cli(fa_in, kk, *options, out_flag="--greedytigs-fa-out"):
-    """(rc, launches, seconds, out store) of one CLI run writing the fasta
-    of ``out_flag`` to out.fa beside ``fa_in``."""
+def run_cli(path, kk, *options, out_flag="--greedytigs-fa-out", in_flag="--fa-in"):
+    """(rc, launches, seconds, out store, laps) of one CLI run on the input
+    ``path`` given by ``in_flag`` (``-k kk`` unless ``kk`` is None) that
+    writes the fasta of ``out_flag`` to out.fa beside ``path`` (no store
+    when ``out_flag`` is None: ``options`` name the outputs).  ``laps`` are
+    the CLI's own INFO laps, taken by a handler attached for the run:
+    ``load_s`` (read and graph build), ``compute_s`` and ``write_s`` summed
+    over the algorithms run (each one's under ``per_algorithm_s`` where
+    there are several), and for GFA input how its names were resolved."""
     from matchtigs_tpu_torch.cli import main as cli_main
     from matchtigs_tpu_torch.io.readers import read_fasta
     from matchtigs_tpu_torch.ops import sssp
 
-    fa_out = Path(fa_in).with_name("out.fa")
+    fa_out = Path(path).with_name("out.fa")
+    argv = [in_flag, str(path), *(["-k", str(kk)] if kk is not None else []),
+            *([out_flag, str(fa_out)] if out_flag else []), "--log-level", "Warning",
+            *options]
     sssp.reset_kernel_launches()
     t = time.monotonic()
-    rc = cli_main(["--fa-in", str(fa_in), "-k", str(kk), out_flag, str(fa_out),
-                   "--log-level", "Warning", *options])
+    with LogCapture("matchtigs_tpu_torch", "matchtigs_tpu_torch.io.readers") as log:
+        rc = cli_main(argv)
     torch.cuda.synchronize()
     seconds = time.monotonic() - t
     launches = dict(sssp.KERNEL_LAUNCHES)
-    return rc, launches, seconds, read_fasta(fa_out)[0] if rc == 0 else None
+    laps = {}
+    if rc == 0:
+        (laps["load_s"],), = log.args("Loading took %.1f seconds")
+        per = {a: dict(compute_s=c, write_s=w) for a, c, w in
+               log.args("Computing %s took %.1fs and writing took %.1fs")}
+        laps.update(compute_s=sum(x["compute_s"] for x in per.values()),
+                    write_s=sum(x["write_s"] for x in per.values()))
+        if len(per) > 1:
+            laps["per_algorithm_s"] = per
+        names = log.args("GFA names of %d segments and %d links resolved %s")
+        if names:
+            laps["gfa_names"] = names[0][2]
+    out = read_fasta(fa_out)[0] if rc == 0 and out_flag else None
+    return rc, launches, seconds, out, laps
 
 
 def run_mesh_workers(genome_length: int, data_dir: Path) -> list[dict]:

@@ -1,4 +1,4 @@
-# Copied from matchtigs_tpu/io/readers.py.
+# Copied from matchtigs_tpu/io/readers.py; read_gfa logs which name resolution it took.
 """Unitig input parsers: plain fasta, BCALM2/GGCAT fasta, GFA (all + gzip).
 
 Capability-equivalent of ``genome-graph::io`` (call sites
@@ -24,6 +24,7 @@ Gzip is sniffed by the ``.gz`` extension, like the reference
 from __future__ import annotations
 
 import gzip
+import logging
 import re
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -32,6 +33,8 @@ import numpy as np
 
 from ..utils import dna
 from .sequence_store import SequenceStore
+
+logger = logging.getLogger(__name__)
 
 
 @dataclass
@@ -432,6 +435,10 @@ def read_gfa(path: str | Path) -> tuple[SequenceStore, GfaProperties]:
         np.concatenate([fa_s, fb_s]), np.concatenate([fa_e, fb_e]),
     )
     n_l = len(ls)
+    logger.info(
+        "GFA names of %d segments and %d links resolved %s", len(name_s), n_l,
+        "as decimals" if resolved is not None else "through a name map",
+    )
     if resolved is not None:
         ids, found = resolved
         a_ids, b_ids = ids[:n_l], ids[n_l:]

@@ -1,4 +1,4 @@
-# Copied from matchtigs_tpu/testing.py; adds assert_tigs_spell_kmer_strings for k > 63, ball_graph (stage graphs with a ball of a given size) and capi_merges (a graph's topology as C ABI merge calls), unitigs_from_kmers runs its lookups in threads (same output), make_pangenome_store(device=...) builds the k-mer sets and unitigs with torch on a device for k <= 63 (same output; pangenome_on_device, unitig_codes_from_kmers, spelled_kmers_torch), and the two-word path handles k = 32 (the original raises there: its predecessor shift goes negative).
+# Copied from matchtigs_tpu/testing.py; adds assert_tigs_spell_kmer_strings for k > 63, ball_graph (stage graphs with a ball of a given size), capi_merges and graph_links (a graph's topology as C ABI merge calls and as the links of a BCALM2 or GFA file), write_fasta, write_bcalm2 and write_gfa (those files, built over whole columns), same_graph_up_to_node_ids and split_linkless_nodes, unitigs_from_kmers runs its lookups in threads (same output), make_pangenome_store(device=...) builds the k-mer sets and unitigs with torch on a device for k <= 63 (same output; pangenome_on_device, unitig_codes_from_kmers, spelled_kmers_torch), and the two-word path handles k = 32 (the original raises there: its predecessor shift goes negative).
 """Synthetic data generation and oracle checks.
 
 The reference repo ships no fixtures; its real test oracle is k-mer-set
@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .graph.bigraph import Bigraph
+from .io.readers import Links
 from .io.sequence_store import SequenceStore
 from .utils import dna
 
@@ -786,8 +787,23 @@ def capi_merges(g) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     out-edge pair at each node v with v <= mirror(v) (the pairs at mirror(v)
     are their mirrors, which each call merges too), nodes ascending, then
     in-edges, then out-edges in CSR order."""
+    return _in_out_pairs(g, np.flatnonzero(np.arange(g.n_nodes) <= g.mirror_node))
+
+
+def graph_links(g) -> Links:
+    """The links a BCALM2 or GFA file declares for the unitigs of ``g``:
+    one row (a, sa, b, sb) per in-edge x out-edge pair at every node, nodes
+    ascending, then in-edges, then out-edges in CSR order (the order of a
+    loop over ``in_edges_of(v)`` and ``out_edges_of(v)``)."""
+    a, sa, b, sb = _in_out_pairs(g, np.arange(g.n_nodes))
+    return Links(a=a.astype(np.int64), sa=sa.astype(bool), b=b.astype(np.int64),
+                 sb=sb.astype(bool))
+
+
+def _in_out_pairs(g, nodes: np.ndarray) -> tuple:
+    """(handle, forward) of the in-edge and of the out-edge of every
+    in-edge x out-edge pair at ``nodes``, in the order of capi_merges."""
     out_off, out_edges, in_off, in_edges = g.csr()
-    nodes = np.flatnonzero(np.arange(g.n_nodes) <= g.mirror_node)
     n_in = (in_off[nodes + 1] - in_off[nodes]).astype(np.int64)
     n_out = (out_off[nodes + 1] - out_off[nodes]).astype(np.int64)
     count = n_in * n_out
@@ -800,6 +816,183 @@ def capi_merges(g) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     eo = out_edges[out_off[nodes][row_node] + o]
     handles, forwards = np.asarray(g.handles()), np.asarray(g.forwards())
     return handles[ei], forwards[ei], handles[eo], forwards[eo]
+
+
+def same_graph_up_to_node_ids(g1, g2) -> bool:
+    """Whether two graphs that hold one biedge pair per unitig, in store
+    order, are the same graph but for their node numbering: equal edge
+    weights, handles and orientations, one consistent bijection from g1's
+    endpoint nodes onto g2's, and that bijection commutes with
+    ``mirror_node``."""
+    if (g1.n_nodes, g1.n_edges) != (g2.n_nodes, g2.n_edges):
+        return False
+    if not all(np.array_equal(getattr(g1, f)(), getattr(g2, f)())
+               for f in ("weights", "handles", "forwards")):
+        return False
+    x = np.concatenate([g1.srcs(), g1.dsts()]).astype(np.int64)
+    y = np.concatenate([g2.srcs(), g2.dsts()]).astype(np.int64)
+    f = np.full(g1.n_nodes, -1, np.int64)
+    f[x] = y
+    inv = np.full(g2.n_nodes, -1, np.int64)
+    inv[y] = x
+    return bool(np.array_equal(f[x], y) and np.array_equal(inv[y], x)
+                and (f >= 0).all() and (inv >= 0).all()
+                and np.array_equal(f[g1.mirror_node], g2.mirror_node[f]))
+
+
+def split_linkless_nodes(g) -> Bigraph:
+    """``g`` (one biedge pair per unitig, in store order) as the links of
+    its unitigs can state it.  A link pairs an in-edge with an out-edge at
+    a node, so a node with no in-edge or no out-edge (two unitigs that end
+    in the same (k-1)-mer and go on nowhere) is named by no link: each edge
+    end at it becomes a node of its own, and so do the ends at its mirror.
+    Nodes are numbered in order of the lowest endpoint slot that meets
+    them, as ``build_bigraph_from_links`` numbers its nodes; the edges keep
+    their weights, handles and orientations."""
+    src, dst = g.srcs().astype(np.int64), g.dsts().astype(np.int64)
+    n_uni = g.n_edges // 2
+    linked = (np.bincount(src, minlength=g.n_nodes) > 0) & (
+        np.bincount(dst, minlength=g.n_nodes) > 0)
+    # endpoint slots of unitig u, as build_bigraph_from_links numbers them: the
+    # forward edge's source, its mirror's target, the forward edge's
+    # target, its mirror's source
+    ends = np.stack([src[0::2], dst[1::2], dst[0::2], src[1::2]], axis=1).reshape(-1)
+    key = np.where(linked[ends], ends, g.n_nodes + np.arange(len(ends)))
+    _, first, slot_key = np.unique(key, return_index=True, return_inverse=True)
+    rank = np.empty(len(first), np.int64)
+    rank[np.argsort(first, kind="stable")] = np.arange(len(first))
+    node = rank[slot_key].reshape(n_uni, 4)
+    mirror = np.empty(len(first), np.int32)
+    mirror[node[:, 0]], mirror[node[:, 1]] = node[:, 1], node[:, 0]
+    mirror[node[:, 2]], mirror[node[:, 3]] = node[:, 3], node[:, 2]
+    out = Bigraph(len(first), mirror)
+    out.add_biedge_pairs(src=node[:, 0].astype(np.int32), dst=node[:, 2].astype(np.int32),
+                         weight=g.weights()[0::2], handle=g.handles()[0::2],
+                         forward=g.forwards()[0::2], dummy_id=g.dummy_ids()[0::2])
+    return out
+
+
+# byte x of the 2-bit arena -> its 4 bases as ASCII, first base first
+_PACKED_ASCII = np.frombuffer(b"ACGT", np.uint8)[
+    (np.arange(256)[:, None] >> (2 * np.arange(4))) & 3
+]
+
+
+def _digits(v: np.ndarray) -> np.ndarray:
+    """Decimal digit count of each non-negative int64."""
+    nd = np.ones(len(v), np.int64)
+    p = 10
+    while p <= int(v.max(initial=0)):
+        nd += v >= p
+        p *= 10
+    return nd
+
+
+def _format_rows(fields: list, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """Bytes of ``n`` rows, row i the concatenation of each field's i-th
+    value: a bytes field is the same in every row, a bool column gives "+"
+    or "-", an integer column its decimal digits.  Returns (buffer, row
+    offsets [n + 1]): the fields side by side in one [n, width] byte matrix,
+    compressed by one boolean mask of the bytes each row uses."""
+    blocks, used = [], []
+    for fld in fields:
+        if isinstance(fld, bytes):
+            blocks.append(np.broadcast_to(np.frombuffer(fld, np.uint8), (n, len(fld))))
+            used.append(np.ones((n, len(fld)), bool))
+        elif np.asarray(fld).dtype == bool:
+            blocks.append(np.where(fld, ord("+"), ord("-")).astype(np.uint8)[:, None])
+            used.append(np.ones((n, 1), bool))
+        else:
+            # right-aligned digits; the columns left of each number are unused
+            v = np.array(fld, np.int64)
+            nd = _digits(v)
+            width = int(nd.max(initial=1))
+            block = np.empty((n, width), np.uint8)
+            for j in range(width - 1, -1, -1):
+                v, block[:, j] = np.divmod(v, 10)
+            blocks.append(block + np.uint8(48))
+            used.append(np.arange(width) >= width - nd[:, None])
+    used = np.concatenate(used, axis=1)
+    off = np.zeros(n + 1, np.int64)
+    np.cumsum(used.sum(1), out=off[1:])
+    return np.concatenate(blocks, axis=1)[used], off
+
+
+def _join_records(store: SequenceStore, parts: list, tail: bytes) -> np.ndarray:
+    """Bytes of one record per unitig, in store order: record i is each
+    part's i-th piece, then the unitig's bases, then ``tail``.  A part is a
+    bytes literal (the same in every record) or a ragged (buffer, offsets
+    [n + 1]) pair.  Each piece is placed through one byte per output byte
+    naming the piece it belongs to."""
+    n = len(store)
+
+    def literal(b: bytes):
+        return np.tile(np.frombuffer(b, np.uint8), n), np.full(n, len(b), np.int64)
+
+    pieces = [literal(p) if isinstance(p, bytes) else (p[0][p[1][0]:p[1][-1]], np.diff(p[1]))
+              for p in parts]
+    bases = _PACKED_ASCII[store.packed].reshape(-1)[: int(store.offsets[-1])]
+    pieces += [(bases, store.lengths), literal(tail)]
+    widths = np.stack([w for _, w in pieces], axis=1)  # [n, pieces]
+    owner = np.repeat(np.tile(np.arange(len(pieces), dtype=np.uint8), n),
+                      widths.reshape(-1))
+    out = np.empty(len(owner), np.uint8)
+    for i, (buf, _) in enumerate(pieces):
+        out[owner == i] = buf
+    return out
+
+
+def _open_for_write(path):
+    """``path`` opened for bytes, gzipped (level 1) when it ends in .gz."""
+    import gzip
+
+    if str(path).endswith(".gz"):
+        return gzip.open(path, "wb", compresslevel=1)
+    return open(path, "wb")
+
+
+def write_fasta(path, store: SequenceStore) -> None:
+    """``store`` as plain fasta, record i (store order) headed ``>i``, its
+    sequence on one line.  Gzipped when ``path`` ends in .gz.  Built over
+    whole columns: no loop over unitigs."""
+    n = len(store)
+    body = _join_records(store, [_format_rows([b">", np.arange(n), b"\n"], n)], b"\n")
+    with _open_for_write(path) as f:
+        f.write(memoryview(body))
+
+
+def write_bcalm2(path, store: SequenceStore, links: Links) -> None:
+    """``store`` as BCALM2 writes unitigs: record i (store order) headed
+    ``>i LN:i:<len> KC:i:1 km:f:1.0`` followed by one ``L:<sa>:<b>:<sb>``
+    tag per link with a = i (in ``links``' order), each after a space, its
+    sequence on one line.  Gzipped when ``path`` ends in .gz.  Built over
+    whole columns: no loop over unitigs or links."""
+    n = len(store)
+    head = _format_rows([b">", np.arange(n), b" LN:i:", store.lengths,
+                         b" KC:i:1 km:f:1.0"], n)
+    order = np.argsort(links.a, kind="stable")
+    tags, tag_off = _format_rows([b" L:", links.sa[order], b":", links.b[order],
+                                  b":", links.sb[order]], len(order))
+    first = np.searchsorted(links.a[order], np.arange(n + 1))
+    body = _join_records(store, [head, (tags, tag_off[first]), b"\n"], b"\n")
+    with _open_for_write(path) as f:
+        f.write(memoryview(body))
+
+
+def write_gfa(path, store: SequenceStore, links: Links, k: int) -> None:
+    """``store`` and ``links`` as GFA1 with numeric segment names, as GGCAT
+    writes them: a header line with ``KL:Z:<k>``, one ``S`` line per
+    unitig (names 0..n-1, store order), then one ``L`` line per link with
+    a ``<k-1>M`` overlap, in ``links``' order.  Gzipped when ``path`` ends
+    in .gz.  Built over whole columns: no loop over unitigs or links."""
+    n = len(store)
+    segs = _join_records(store, [_format_rows([b"S\t", np.arange(n), b"\t"], n)], b"\n")
+    lines, _ = _format_rows([b"L\t", links.a, b"\t", links.sa, b"\t", links.b, b"\t",
+                             links.sb, b"\t%dM\n" % (k - 1)], len(links))
+    with _open_for_write(path) as f:
+        f.write(b"H\tVN:Z:1.0\tKL:Z:%d\n" % k)
+        f.write(memoryview(segs))
+        f.write(memoryview(lines))
 
 
 def make_unitig_store(

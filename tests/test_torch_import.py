@@ -29,6 +29,17 @@ for row in zip(*(c.tolist() for c in testing.capi_merges(g))):
     b.merge_nodes(*row)
 b.build_graph(store.lengths + 1 - k)
 assert b.compute_tigs(5, k, engine="host")[2][-1] > 0
+import tempfile
+from pathlib import Path
+from matchtigs_tpu_torch.io.readers import read_bcalm2, read_gfa
+g = mt.build_bigraph_from_unitigs(store, k)
+links = testing.graph_links(g)
+with tempfile.TemporaryDirectory() as tmp:
+    testing.write_bcalm2(Path(tmp) / "u.bcalm.fa", store, links)
+    testing.write_gfa(Path(tmp) / "u.gfa.gz", store, links, k)
+    s2, l2 = read_bcalm2(Path(tmp) / "u.bcalm.fa")
+    assert len(read_gfa(Path(tmp) / "u.gfa.gz")[1].links) == len(l2) == len(links)
+assert testing.same_graph_up_to_node_ids(g, mt.build_bigraph_from_links(s2, l2, k))
 import matchtigs_tpu_torch.cli
 import matchtigs_tpu_torch.ops.perfect_matching
 from matchtigs_tpu_torch.utils import malloc_tuning
@@ -40,7 +51,8 @@ assert not bad, bad
 
 
 def test_host_greedy_run_imports_no_jax():
-    """Every front on the host engine, the C ABI's builder and the CLI."""
+    """Every front on the host engine, the C ABI's TigGraphBuilder, the
+    CLI, and the link inputs written by ``testing`` and read back."""
     env = dict(os.environ, PYTHONPATH=str(PKG.parent))
     proc = subprocess.run(
         [sys.executable, "-c", _HOST_RUN],
