@@ -6,8 +6,8 @@ strains, 1% mutations, repeats, k=31), then pathtigs and eulertigs, the
 C ABI, and the CLI from the link-annotated inputs BCALM2 and GGCAT write
 (``--bcalm-in``, ``--gfa-in``), after building every kernel from the
 sources in the checkout and holding each against its plain PyTorch
-version; then greedy matchtigs on the same pangenome at k=63 (deep balls)
-and on the 60 Mbp pangenome:
+version; then greedy matchtigs on the same pangenome at k=63 (deep balls),
+on the 60 Mbp pangenome and on a C. elegans-sized one past 2^24 nodes:
 
 - ``dataset``: the flagship made on the card
   (``testing.make_pangenome_store(device=...)``) into this run's own
@@ -84,6 +84,20 @@ and on the 60 Mbp pangenome:
   greedytigs CLI from it, with ``cli_bcalm_in``'s gates and readings;
   ``cli_matchtigs_60m``: the optimal-matchtigs CLI on it (one
   register-kernel launch), exact k-mer set, no longer than greedy's;
+- ``dataset_celegans``: BASELINE.md:33's config 3 at the length of the C.
+  elegans reference assembly (100.3 Mbp) as the same pangenome, made on
+  the card once the 60 Mbp phase's memory is freed: about 17.1 M nodes,
+  past the 2^24 node ids of the packed rows and adjacency (checked, with
+  both packing predicates False), its unitigs spelling each k-mer of the
+  set exactly once, the port's own sha256;
+- ``celegans_stage``: the default stage there, the wide kernel at C=4 over
+  the unpacked adjacency and rows on every device source, against its
+  plain version on the card, with its times, bound and ball census, then
+  the stage's dispatch (one ``sssp_wide`` launch, no ``sssp_pool``) and
+  its download; ``greedy_celegans``: library runs of the device and host
+  engines in alternation, equal walks; ``cli_device_celegans``: the
+  default greedytigs CLI on it (one ``sssp_wide`` launch), its fasta equal
+  to the host engine's walks and spelling the input k-mer set;
 - ``mesh_two_process``, last: two processes of one gloo group, both on the
   card, run greedy matchtigs with ``use_mesh=True`` (this script with
   ``--mesh-worker``); walks equal in both and to the host engine's.  Once
@@ -100,8 +114,9 @@ with the counts set to 0 just before each: ``sssp_pool`` from
 ``cli_gfa_in``, ``mesh_stage``, ``mesh_two_process``, ``cli_device_k63``,
 ``cli_ladder_k63``, ``cli_device_60m``, ``cli_bcalm_in_60m`` and
 ``cli_matchtigs_60m``, ``sssp_wide`` from
-``cli_ladder``, ``cli_k131``, ``mesh_stage`` (batch) and
-``cli_ladder_k63``, ``sssp_compact`` from the compact dispatch
+``cli_ladder``, ``cli_k131``, ``mesh_stage`` (batch),
+``cli_ladder_k63``, ``greedy_celegans`` (device engine) and
+``cli_device_celegans``, ``sssp_compact`` from the compact dispatch
 of ``compact_vs_full``, ``mesh_sort`` and ``mesh_merge_split`` from
 ``mesh_two_process``.  Each kernel's ``bound_ms`` is the larger of its
 bytes (inputs read once, outputs written once) over the card's memory
@@ -127,6 +142,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import gc
 import hashlib
 import json
 import logging
@@ -164,6 +180,21 @@ SCALE60M_LENGTH = 60_000_000
 SCALE60M_COUNTS = dict(unitigs=7_843_250, kmers=150_495_678, nodes=10_238_350,
                        sources=4_966_834)
 SCALE60M_SHA256 = "c6b2b3eb29a5f89ca51ddaf5272efe8050a94672ddf8147a4cdf1bf4b2fc84e2"
+# BASELINE.md:33's config 3 (C. elegans, k=31, greedy matchtigs) at the
+# length of the C. elegans reference assembly WBcel235, as the flagship's
+# pangenome (7 strains, 1% mutations, repeats, seed 0): the smallest real
+# size whose node ids (about 17.1 M) do not fit the 24 bits of the packed
+# rows and adjacency (NODE_ID_LIMIT), so the default stage runs the wide
+# kernel over the unpacked (nbr, nw) pair with unpacked rows
+CELEGANS_LENGTH = 100_286_401
+NODE_ID_LIMIT = 1 << 24
+# its counts and the sha256 (as dataset_digest hashes) of the torch
+# generator's output on the card (no JAX digest: the JAX generator at this
+# size needs tens of GiB of host memory)
+CELEGANS_COUNTS = dict(unitigs=13_092_454, kmers=251_006_893, nodes=17_081_052,
+                       sources=8_291_886, device_sources=7_474_596)
+CELEGANS_SHA256 = "d4a1c4802acc63bbfcdd8053bc5d26856cfa09b63fd8b4021224bf80881860cf"
+CELEGANS_GREEDY_PAIRS = 2  # device/host library runs, alternating
 # the deep-ball configuration: the flagship's pangenome at k=63 with the
 # device stage at first capacity 16 (BASELINE.md:103-107, :536-540); the
 # sha256 and counts of the JAX package's numpy generator at the flagship's
@@ -340,16 +371,20 @@ def roofline(bytes_moved: int, ops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def search_bound(adj, src, rows, over, deg: int) -> tuple[float, str]:
-    """Bound of a search launch: the adjacency, sources, rows and flags
-    once; one relaxation per member slot and adjacency slot of the balls
-    this run found (a ball that overflowed: C + 1 members)."""
+def search_bound(adj, src, rows, over, deg: int, nw=None, dist=None) -> tuple[float, str]:
+    """Bound of a search launch: the adjacency (packed, or the unpacked
+    ``(adj, nw)`` pair: two int32 words per slot), sources, rows (with
+    ``dist`` for unpacked rows) and flags once; one relaxation per member
+    slot and adjacency slot of the balls this run found (a ball that
+    overflowed: C + 1 members)."""
     from matchtigs_tpu_torch.ops.sssp import DIST_BITS
 
     sentinel = adj.shape[0] - 1
-    members = int(((rows >> DIST_BITS) != sentinel)[over == 0].sum())
+    nodes = rows if dist is not None else rows >> DIST_BITS
+    members = int((nodes != sentinel)[over == 0].sum())
     members += int((over != 0).sum()) * (rows.shape[1] + 1)
-    moved = sum(t.numel() * t.element_size() for t in (adj, src, rows, over))
+    moved = sum(t.numel() * t.element_size() for t in (adj, nw, src, rows, dist, over)
+                if t is not None)
     return roofline(moved, members * deg)
 
 
@@ -359,15 +394,18 @@ def sort_bound(n_in: int, n_out: int) -> tuple[float, str]:
     return roofline(8 * (n_in + n_out), n_in * max(1, math.ceil(math.log2(max(2, n_in)))))
 
 
-def ball_census(rows, over, sentinel: int) -> dict:
-    """Ball sizes and distinct distance levels of the sources behind packed
-    rows sorted by (dist, node): per bin of CENSUS_BINS the sources, their
-    share and their mean levels; balls above the capacity count as
-    ``over_capacity``."""
+def ball_census(rows, over, sentinel: int, dist=None) -> dict:
+    """Ball sizes and distinct distance levels of the sources behind rows
+    sorted by (dist, node), packed or (with ``dist``) unpacked: per bin of
+    CENSUS_BINS the sources, their share and their mean levels; balls above
+    the capacity count as ``over_capacity``."""
     from matchtigs_tpu_torch.ops.sssp import DIST_BITS, DIST_CAP
 
     done = over == 0
-    node, dist = rows[done] >> DIST_BITS, rows[done] & DIST_CAP
+    if dist is None:
+        node, dist = rows[done] >> DIST_BITS, rows[done] & DIST_CAP
+    else:
+        node, dist = rows[done], dist[done]
     valid = node != sentinel
     size = valid.sum(1)
     levels = valid[:, 0].long() + (valid[:, 1:] & (dist[:, 1:] != dist[:, :-1])).sum(1)
@@ -1236,6 +1274,13 @@ def smoke(args, data_dir: Path) -> int:
     # CLI on it
     pool_launches += scale60m(args, device, checks)
 
+    # 16b. The C. elegans-sized pangenome (past 2^24 nodes), generated on
+    # the card once the 60 Mbp phase's memory is freed: the wide kernel's
+    # stage over the unpacked layouts, library greedy runs and the CLI
+    celegans_launches = celegans_scale(args, device, wide)
+    pool_launches += celegans_launches["sssp_pool"]
+    wide_launches += celegans_launches["sssp_wide"]
+
     # 17. Two processes of one gloo group, both on the card, on the
     # flagship cached above.  Last: once a child process has used the card,
     # the profiler sees few or none of this process's device events.
@@ -1747,6 +1792,172 @@ def scale60m(args, device, checks: list) -> int:
         check(mt_equal and mt_len <= length,
               f"60M matchtigs: k-mer set equal {mt_equal}, length {mt_len} "
               f"against greedy's {length}")
+    return launched
+
+
+def celegans_scale(args, device, checks: list) -> dict:
+    """The phases ``dataset_celegans``, ``celegans_stage``,
+    ``greedy_celegans`` and ``cli_device_celegans``: the C. elegans-sized
+    pangenome (``CELEGANS_LENGTH`` scaled as ``--genome-length`` scales the
+    flagship) made on the card after the 60 Mbp phase's memory is freed;
+    at the full length its node ids pass ``NODE_ID_LIMIT``, so the default
+    stage leaves ``sssp_pool`` for ``sssp_wide`` over the unpacked
+    adjacency and rows.  The wide kernel on every device source at C=4,
+    pool schedule, held to its plain version on the card (appended to
+    ``checks``) and read (events, profiler device time per tier, device
+    operations, bound, ball census), then the stage's dispatch and
+    download; library greedy runs of both engines in alternation, and the
+    greedytigs CLI, held to the host engine's walks and to the input k-mer
+    set.  Returns the path runs' launches per kernel (the CLI's and the
+    device-engine library runs')."""
+    from matchtigs_tpu_torch import testing
+    from matchtigs_tpu_torch.algos.greedytigs import GreedytigConfig, compute_greedytigs
+    from matchtigs_tpu_torch.io.writers import spell_walks_flat, write_walks_fasta
+    from matchtigs_tpu_torch.ops import sssp
+
+    t_group = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    genome_length = CELEGANS_LENGTH * args.genome_length // FLAGSHIP_LENGTH
+    store, kmers, g, dg, (_, in_mask, _), pending, data = make_dataset(genome_length, device)
+    k = K
+    full = genome_length == CELEGANS_LENGTH
+    packs = dict(can_pack_out=sssp._can_pack_out(dg, k - 1),
+                 can_pack_adj=sssp._can_pack_adj(dg, k - 1))
+    # the stage this graph takes: the register kernel where both layouts
+    # pack, else the wide kernel
+    stage_launches = dict.fromkeys(ONE_POOL_LAUNCH, 0)
+    stage_launches["sssp_pool" if all(packs.values()) else "sssp_wide"] = 1
+    t = time.monotonic()
+    spelled = testing.spelled_kmers_torch(store, k, device)
+    n_spelled = len(spelled)
+    unique = testing.kmers_to_numpy(testing.sorted_unique_kmers(spelled, k))
+    del spelled
+    once = n_spelled == len(kmers) and bool(np.array_equal(unique, kmers))
+    del unique
+    data["port_sha256"] = data.pop("sha256")  # the port's output; no JAX digest at this size
+    phase("dataset_celegans", seconds=time.monotonic() - t0, **data, **packs,
+          node_id_limit=NODE_ID_LIMIT, past_node_id_limit=g.n_nodes + 1 >= NODE_ID_LIMIT,
+          spelled_kmers=n_spelled, each_kmer_once=once, kmer_check_s=time.monotonic() - t,
+          checked=full)
+    check(once, f"the unitigs spell {n_spelled} k-mers, the set has {len(kmers)}")
+    if full:
+        check(g.n_nodes + 1 >= NODE_ID_LIMIT and not any(packs.values()),
+              f"the C. elegans-sized graph has {g.n_nodes} nodes and packs {packs}: "
+              "it does not leave the packed layouts")
+        counts = {c: data[c] for c in CELEGANS_COUNTS}
+        check(counts == CELEGANS_COUNTS and data["port_sha256"] == CELEGANS_SHA256,
+              f"the C. elegans-sized dataset differs: {data['port_sha256']} {counts}")
+
+    # the wide kernel at the stage's shape (every device source, C=4, pool
+    # schedule, unpacked adjacency and rows) against its plain version on
+    # the card, then the stage itself: dispatch, download and extraction
+    t0 = time.monotonic()
+    nbr, nw = dg.device_buffers(device, adj_packed=False)
+    src = torch.from_numpy(pending).to(device)
+
+    def run():
+        return sssp.wide_sssp(nbr, src, k - 1, CAPACITY, nw=nw, pack_out=False)
+    got = run()
+    want, p_ms = plain_ms(lambda: sssp.pool_sssp_plain(nbr, src, k - 1, CAPACITY, nw=nw,
+                                                       pack_out=False))
+    reading = dict(layout="unpacked", schedule="pool", capacity=CAPACITY, sources=len(src),
+                   kernel_ms=kernel_ms(run), plain_on_gpu_ms=p_ms, **row_mismatches(got, want))
+    del want
+    reading["bound_ms"], reading["bound_by"] = search_bound(
+        nbr, src, got[0], got[2], dg.deg_pad, nw=nw, dist=got[1])
+    census = ball_census(got[0], got[2], dg.sentinel, dist=got[1])
+    device_time, breakdown, _ = device_ms(run)
+    reading.update(kernel_device_ms=device_time, kernel_device_breakdown_ms=breakdown,
+                   kernel_device_ops=device_ops(run), host_enqueue_ms=host_ms(run),
+                   overflow_frac=float(got[2].float().mean()))
+    over_kernel = got[2].cpu().numpy().astype(bool)
+    del got
+    checks.append(reading)
+    sssp.reset_kernel_launches()
+    t = time.monotonic()
+    stage = sssp.batched_bounded_sssp_dispatch(dg, pending, k - 1, CAPACITY, device)
+    tri, over = stage.fetch_candidates(dg, pending, in_mask)
+    stage_s = time.monotonic() - t
+    launches = dict(sssp.KERNEL_LAUNCHES)
+    phase("celegans_stage", seconds=time.monotonic() - t0, **reading, census=census,
+          adjacency_bytes=nbr.numel() * nbr.element_size() * 2,
+          stage_launches=launches, stage_s=stage_s, stage_kernel_s=stage.kernel_seconds(),
+          bytes_fetched=stage.bytes_fetched, candidates=len(tri),
+          stage_overflow_equal=bool(np.array_equal(over, over_kernel)))
+    check(not (reading["flag_mismatch"] or reading["row_mismatch"]),
+          f"the wide kernel disagrees with its plain version at the C. elegans shape: {reading}")
+    check(launches == stage_launches and np.array_equal(over, over_kernel),
+          f"the C. elegans stage launched {launches}, expected {stage_launches}")
+    del stage, tri, over, over_kernel, src, nbr, nw
+
+    # library runs of both engines in alternation; only scalars stay
+    # between runs (the first host run's fasta digest for the CLI's gate)
+    t0 = time.monotonic()
+    launched = dict.fromkeys(ONE_POOL_LAUNCH, 0)
+    runs = []
+    host_fasta = None
+    with tempfile.TemporaryDirectory() as tmp:
+        for _ in range(CELEGANS_GREEDY_PAIRS):
+            for engine in ("device", "host"):
+                gg = g.copy()
+                sssp.reset_kernel_launches()
+                t = time.monotonic()
+                tigs = compute_greedytigs(gg, GreedytigConfig(k=k, engine=engine))
+                torch.cuda.synchronize()
+                seconds = time.monotonic() - t
+                walks = hashlib.sha256(tigs.flat.tobytes())
+                walks.update(tigs.offsets.tobytes())
+                _, off = spell_walks_flat(gg, tigs, store, k)
+                runs.append(dict(engine=engine, seconds=seconds, tigs=len(tigs),
+                                 cumulative_length=int(off[-1]),
+                                 walks_sha256=walks.hexdigest(),
+                                 launches=dict(sssp.KERNEL_LAUNCHES)))
+                if engine == "device":
+                    launched = {n: c + sssp.KERNEL_LAUNCHES[n] for n, c in launched.items()}
+                elif host_fasta is None:
+                    path = Path(tmp) / "host.fa"
+                    write_walks_fasta(gg, tigs, store, k, path)
+                    host_fasta = hashlib.sha256(path.read_bytes()).hexdigest()
+                del gg, tigs, off
+    results = {(r["tigs"], r["cumulative_length"], r["walks_sha256"]) for r in runs}
+    device_runs = [r for r in runs if r["engine"] == "device"]
+    phase("greedy_celegans", seconds=time.monotonic() - t0, runs=runs,
+          device_s=[r["seconds"] for r in device_runs],
+          host_s=[r["seconds"] for r in runs if r["engine"] == "host"],
+          walks_equal=len(results) == 1, peak_host_rss_gib=peak_rss_gib())
+    check(len(results) == 1, f"C. elegans library runs differ: {runs}")
+    check(all(r["launches"] == stage_launches for r in device_runs),
+          f"C. elegans device-engine launches {[r['launches'] for r in device_runs]}, "
+          f"expected {stage_launches}")
+    (tigs, length, _), = results
+
+    # the greedytigs CLI from the gzipped fasta
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        fa_in, fa_out = Path(tmp) / "unitigs.fa.gz", Path(tmp) / "out.fa"
+        t = time.monotonic()
+        testing.write_fasta(fa_in, store)
+        write_s = time.monotonic() - t
+        del store, g, dg
+        gc.collect()
+        rc, launches, cli_s, out_store, laps = run_cli(fa_in, k)
+        check(rc == 0 and launches == stage_launches,
+              f"C. elegans CLI rc {rc}, kernel launches {launches}, expected {stage_launches}")
+        launched = {n: c + launches[n] for n, c in launched.items()}
+        cli_tigs, cli_len = len(out_store), int(out_store.offsets[-1])
+        kmer_equal = bool(np.array_equal(spelled_kmer_set(out_store, k, device), kmers))
+        del out_store
+        fasta_equal = hashlib.sha256(fa_out.read_bytes()).hexdigest() == host_fasta
+    phase("cli_device_celegans", seconds=time.monotonic() - t0, write_fasta_s=write_s,
+          cli_s=cli_s, **laps, launches=launches, tigs=cli_tigs, cumulative_length=cli_len,
+          library_tigs=tigs, library_cumulative_length=length, fasta_equal_host=fasta_equal,
+          kmer_set_equal=kmer_equal, peak_host_rss_gib=peak_rss_gib())
+    check(fasta_equal and kmer_equal and (cli_tigs, cli_len) == (tigs, length),
+          f"C. elegans CLI: fasta equal to the host engine's {fasta_equal}, k-mer set "
+          f"equal {kmer_equal}, tigs {cli_tigs} / {cli_len} against {tigs} / {length}")
+    phase("celegans_scale_done", seconds=time.monotonic() - t_group, launches=launched)
     return launched
 
 

@@ -276,6 +276,21 @@ def test_wide_every_source_spills(cuda_device, capacity, schedule):
         assert not over.any()
 
 
+def test_wide_unpacked_c4_past_a_million_sources(cuda_device):
+    """The default stage of a graph past 2^24 nodes: the wide kernel's pool
+    schedule at C=4 over the unpacked adjacency, unpacked rows, one launch
+    and no register-kernel launch, on the sources of a ball graph repeated
+    past 2^20 (balls from one node to past the capacity)."""
+    n, nbr, nw, mw = testing.ball_graph(2 * W, 3)
+    src = np.tile(np.arange(n + 1), (1 << 20) // (n + 1) + 2)
+    assert len(src) > 1 << 20
+    before = dict(sssp.KERNEL_LAUNCHES)
+    over = _wide_vs_plain(n, nbr, nw, 4, src, mw, 4, "unpacked", "pool", cuda_device)
+    assert sssp.KERNEL_LAUNCHES["sssp_wide"] == before["sssp_wide"] + 1
+    assert sssp.KERNEL_LAUNCHES["sssp_pool"] == before["sssp_pool"]
+    assert over.any() and not over.all()
+
+
 @pytest.mark.parametrize("capacity", [4, 5, 16, 256])
 def test_wide_on_five_node_chains(cuda_device, capacity):
     """The flagship's typical overflow ball: a chain of five nodes (five
