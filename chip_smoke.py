@@ -83,7 +83,8 @@ on the 60 Mbp pangenome and on a C. elegans-sized one past 2^24 nodes:
   version; ``cli_bcalm_in_60m``: the same set written as BCALM2 and the
   greedytigs CLI from it, with ``cli_bcalm_in``'s gates and readings;
   ``cli_matchtigs_60m``: the optimal-matchtigs CLI on it (one
-  register-kernel launch), exact k-mer set, no longer than greedy's;
+  register-kernel launch), exact k-mer set, no longer than greedy's, with
+  its instance sizes and the front's laps;
 - ``dataset_celegans``: BASELINE.md:33's config 3 at the length of the C.
   elegans reference assembly (100.3 Mbp) as the same pangenome, made on
   the card once the 60 Mbp phase's memory is freed: about 17.1 M nodes,
@@ -98,6 +99,14 @@ on the 60 Mbp pangenome and on a C. elegans-sized one past 2^24 nodes:
   engines in alternation, equal walks; ``cli_device_celegans``: the
   default greedytigs CLI on it (one ``sssp_wide`` launch), its fasta equal
   to the host engine's walks and spelling the input k-mer set;
+- ``matchtigs_celegans_collapse``: the optimal front's candidates there
+  from the device engine (one ``sssp_wide`` launch) and the host engine,
+  equal as sets, and their collapses into matching edges, the device
+  engine's on the route its matching-id count picks (past 2^23 ids the
+  argsort route), the host engine's on the argsort route: equal in all
+  five columns; ``cli_matchtigs_celegans``: the optimal-matchtigs CLI from
+  the same fasta (one ``sssp_wide`` launch), spelling the input k-mer set,
+  no longer than greedy, with its instance sizes and the front's laps;
 - ``mesh_two_process``, last: two processes of one gloo group, both on the
   card, run greedy matchtigs with ``use_mesh=True`` (this script with
   ``--mesh-worker``); walks equal in both and to the host engine's.  Once
@@ -115,8 +124,9 @@ with the counts set to 0 just before each: ``sssp_pool`` from
 ``cli_ladder_k63``, ``cli_device_60m``, ``cli_bcalm_in_60m`` and
 ``cli_matchtigs_60m``, ``sssp_wide`` from
 ``cli_ladder``, ``cli_k131``, ``mesh_stage`` (batch),
-``cli_ladder_k63``, ``greedy_celegans`` (device engine) and
-``cli_device_celegans``, ``sssp_compact`` from the compact dispatch
+``cli_ladder_k63``, ``greedy_celegans`` (device engine),
+``cli_device_celegans``, ``matchtigs_celegans_collapse`` (device engine)
+and ``cli_matchtigs_celegans``, ``sssp_compact`` from the compact dispatch
 of ``compact_vs_full``, ``mesh_sort`` and ``mesh_merge_split`` from
 ``mesh_two_process``.  Each kernel's ``bound_ms`` is the larger of its
 bytes (inputs read once, outputs written once) over the card's memory
@@ -194,7 +204,10 @@ NODE_ID_LIMIT = 1 << 24
 CELEGANS_COUNTS = dict(unitigs=13_092_454, kmers=251_006_893, nodes=17_081_052,
                        sources=8_291_886, device_sources=7_474_596)
 CELEGANS_SHA256 = "d4a1c4802acc63bbfcdd8053bc5d26856cfa09b63fd8b4021224bf80881860cf"
-CELEGANS_GREEDY_PAIRS = 2  # device/host library runs, alternating
+CELEGANS_GREEDY_PAIRS = 1  # device/host library runs, alternating
+# the matching-id count from which the candidate collapse leaves its packed
+# value sort (23-bit ids) for the argsort route
+ARGSORT_IDS = 1 << 23
 # the deep-ball configuration: the flagship's pangenome at k=63 with the
 # device stage at first capacity 16 (BASELINE.md:103-107, :536-540); the
 # sha256 and counts of the JAX package's numpy generator at the flagship's
@@ -942,10 +955,7 @@ def smoke(args, data_dir: Path) -> int:
         mt_fasta = (Path(tmp) / "out.fa").read_bytes()
         mt_tigs, mt_len = len(out_store), int(out_store.offsets[-1])
         got = spelled_kmer_set(out_store, k, device)
-        laps = {a[0]: a[1] for a in log.args("%s: %.2fs")}
-        (n_ids,), (n_edges,), (matched,) = (log.args(msg)[0] for msg in (
-            "Matching instance has %d expanded nodes", "Collapsed to %d matching edges",
-            "Matched %d id pairs"))
+        inst = matching_instance(log)
         instance = [f.open().readline().split() for f in (
             Path(f"{prefix}.matching"), Path(f"{prefix}.matching.solution"))]
         bv_lines = bv_out.read_bytes().split(b"\n")[:-1]
@@ -965,10 +975,7 @@ def smoke(args, data_dir: Path) -> int:
         same_walks = (np.array_equal(d_mt.flat, h_mt.flat)
                       and np.array_equal(d_mt.offsets, h_mt.offsets))
         phase("cli_matchtigs", seconds=time.monotonic() - t0, cli_s=mt_s, **cli_laps,
-              candidates=log.args("Found %d candidate shortest paths")[0][0],
-              matching_ids=n_ids, matching_edges=n_edges,
-              matched_pairs=matched,
-              matching_s=laps["Matching"], laps_s=laps, launches=launches,
+              **inst, matching_s=inst["laps_s"]["Matching"], launches=launches,
               tigs=mt_tigs, cumulative_length=mt_len,
               greedy_tigs=cli_tigs, greedy_cumulative_length=cli_len,
               saving_over_greedy=cli_len - mt_len,
@@ -982,7 +989,8 @@ def smoke(args, data_dir: Path) -> int:
         check(mt_len <= cli_len, f"matchtigs {mt_len} longer than greedytigs {cli_len}")
         check((mt_tigs, mt_len) == (len(h_mt), int(h_off[-1])) and same_fasta and same_walks,
               "matchtigs differ from the host engine's")
-        check(instance == [[str(n_ids), str(n_edges)], [str(n_ids), str(matched)]]
+        check(instance == [[str(inst["matching_ids"]), str(inst["matching_edges"])],
+                           [str(inst["matching_ids"]), str(inst["matched_pairs"])]]
               and len(bv_lines) == mt_tigs
               and sum(line.count(b"1") for line in bv_lines) == len(want_kmers),
               "matching files or duplication bitvector disagree with the run")
@@ -1779,14 +1787,17 @@ def scale60m(args, device, checks: list) -> int:
         del link
 
         t0 = time.monotonic()
-        rc, launches, mt_s, out_store, laps = run_cli(fa_in, k, out_flag="--matchtigs-fa-out")
+        with LogCapture("matchtigs_tpu_torch.algos.matchtigs") as log:
+            rc, launches, mt_s, out_store, laps = run_cli(fa_in, k,
+                                                          out_flag="--matchtigs-fa-out")
         check(rc == 0 and launches == ONE_POOL_LAUNCH,
               f"60M matchtigs CLI rc {rc}, kernel launches {launches}")
         launched += launches["sssp_pool"]
         mt_tigs, mt_len = len(out_store), int(out_store.offsets[-1])
         mt_equal = bool(np.array_equal(spelled_kmer_set(out_store, k, device), kmers))
         phase("cli_matchtigs_60m", seconds=time.monotonic() - t0, cli_s=mt_s, **laps,
-              launches=launches, tigs=mt_tigs, cumulative_length=mt_len,
+              **matching_instance(log), launches=launches, tigs=mt_tigs,
+              cumulative_length=mt_len,
               greedy_tigs=tigs, greedy_cumulative_length=length,
               kmer_set_equal=mt_equal, peak_host_rss_gib=peak_rss_gib())
         check(mt_equal and mt_len <= length,
@@ -1797,9 +1808,11 @@ def scale60m(args, device, checks: list) -> int:
 
 def celegans_scale(args, device, checks: list) -> dict:
     """The phases ``dataset_celegans``, ``celegans_stage``,
-    ``greedy_celegans`` and ``cli_device_celegans``: the C. elegans-sized
-    pangenome (``CELEGANS_LENGTH`` scaled as ``--genome-length`` scales the
-    flagship) made on the card after the 60 Mbp phase's memory is freed;
+    ``greedy_celegans``, ``cli_device_celegans``,
+    ``matchtigs_celegans_collapse`` and ``cli_matchtigs_celegans``: the C.
+    elegans-sized pangenome (``CELEGANS_LENGTH`` scaled as
+    ``--genome-length`` scales the flagship) made on the card after the 60
+    Mbp phase's memory is freed;
     at the full length its node ids pass ``NODE_ID_LIMIT``, so the default
     stage leaves ``sssp_pool`` for ``sssp_wide`` over the unpacked
     adjacency and rows.  The wide kernel on every device source at C=4,
@@ -1808,8 +1821,10 @@ def celegans_scale(args, device, checks: list) -> dict:
     operations, bound, ball census), then the stage's dispatch and
     download; library greedy runs of both engines in alternation, and the
     greedytigs CLI, held to the host engine's walks and to the input k-mer
-    set.  Returns the path runs' launches per kernel (the CLI's and the
-    device-engine library runs')."""
+    set; then optimal matchtigs: the front's candidates and collapses
+    (``celegans_collapse``) and its CLI from the same fasta, held to the
+    input k-mer set and to greedy's length.  Returns the path runs'
+    launches per kernel (the CLIs' and the device-engine library runs')."""
     from matchtigs_tpu_torch import testing
     from matchtigs_tpu_torch.algos.greedytigs import GreedytigConfig, compute_greedytigs
     from matchtigs_tpu_torch.io.writers import spell_walks_flat, write_walks_fasta
@@ -1933,14 +1948,15 @@ def celegans_scale(args, device, checks: list) -> dict:
           f"expected {stage_launches}")
     (tigs, length, _), = results
 
-    # the greedytigs CLI from the gzipped fasta
+    # the greedytigs CLI from the gzipped fasta; the optimal front's phases
+    # after it reuse the fasta, the graph and the k-mer set
     t0 = time.monotonic()
     with tempfile.TemporaryDirectory() as tmp:
         fa_in, fa_out = Path(tmp) / "unitigs.fa.gz", Path(tmp) / "out.fa"
         t = time.monotonic()
         testing.write_fasta(fa_in, store)
         write_s = time.monotonic() - t
-        del store, g, dg
+        del store, dg
         gc.collect()
         rc, launches, cli_s, out_store, laps = run_cli(fa_in, k)
         check(rc == 0 and launches == stage_launches,
@@ -1950,15 +1966,125 @@ def celegans_scale(args, device, checks: list) -> dict:
         kmer_equal = bool(np.array_equal(spelled_kmer_set(out_store, k, device), kmers))
         del out_store
         fasta_equal = hashlib.sha256(fa_out.read_bytes()).hexdigest() == host_fasta
-    phase("cli_device_celegans", seconds=time.monotonic() - t0, write_fasta_s=write_s,
-          cli_s=cli_s, **laps, launches=launches, tigs=cli_tigs, cumulative_length=cli_len,
-          library_tigs=tigs, library_cumulative_length=length, fasta_equal_host=fasta_equal,
-          kmer_set_equal=kmer_equal, peak_host_rss_gib=peak_rss_gib())
-    check(fasta_equal and kmer_equal and (cli_tigs, cli_len) == (tigs, length),
-          f"C. elegans CLI: fasta equal to the host engine's {fasta_equal}, k-mer set "
-          f"equal {kmer_equal}, tigs {cli_tigs} / {cli_len} against {tigs} / {length}")
+        phase("cli_device_celegans", seconds=time.monotonic() - t0, write_fasta_s=write_s,
+              cli_s=cli_s, **laps, launches=launches, tigs=cli_tigs, cumulative_length=cli_len,
+              library_tigs=tigs, library_cumulative_length=length,
+              fasta_equal_host=fasta_equal, kmer_set_equal=kmer_equal,
+              peak_host_rss_gib=peak_rss_gib())
+        check(fasta_equal and kmer_equal and (cli_tigs, cli_len) == (tigs, length),
+              f"C. elegans CLI: fasta equal to the host engine's {fasta_equal}, k-mer set "
+              f"equal {kmer_equal}, tigs {cli_tigs} / {cli_len} against {tigs} / {length}")
+
+        launches = celegans_collapse(g, k, stage_launches)
+        launched = {n: c + launches[n] for n, c in launched.items()}
+        del g
+        gc.collect()
+
+        # the optimal-matchtigs CLI from the same fasta
+        t0 = time.monotonic()
+        with LogCapture("matchtigs_tpu_torch.algos.matchtigs") as log:
+            rc, launches, mt_s, out_store, cli_laps = run_cli(
+                fa_in, k, out_flag="--matchtigs-fa-out")
+        check(rc == 0 and launches == stage_launches,
+              f"C. elegans matchtigs CLI rc {rc}, kernel launches {launches}, "
+              f"expected {stage_launches}")
+        launched = {n: c + launches[n] for n, c in launched.items()}
+        mt_tigs, mt_len = len(out_store), int(out_store.offsets[-1])
+        kmer_equal = bool(np.array_equal(spelled_kmer_set(out_store, k, device), kmers))
+        del out_store
+    phase("cli_matchtigs_celegans", seconds=time.monotonic() - t0, cli_s=mt_s, **cli_laps,
+          **matching_instance(log), launches=launches, tigs=mt_tigs, cumulative_length=mt_len,
+          greedy_tigs=tigs, greedy_cumulative_length=length,
+          saving_over_greedy=length - mt_len, kmer_set_equal=kmer_equal,
+          peak_host_rss_gib=peak_rss_gib())
+    check(kmer_equal and mt_len <= length,
+          f"C. elegans matchtigs: k-mer set equal {kmer_equal}, length {mt_len} against "
+          f"greedy's {length}")
     phase("celegans_scale_done", seconds=time.monotonic() - t_group, launches=launched)
     return launched
+
+
+def celegans_collapse(g, k: int, stage_launches: dict) -> dict:
+    """The phase ``matchtigs_celegans_collapse``: the optimal front's
+    candidates from the device engine (one stage launch) and from the host
+    engine, equal as sets; then the device-order candidates collapsed on
+    the route their id count picks, and the host-order ones on the argsort
+    route (forced below 2^23 ids by passing ``ARGSORT_IDS``, which keeps
+    the pair keys' order), all five columns equal.  Returns the device
+    engine's launches per kernel."""
+    from matchtigs_tpu_torch.algos import matchtigs as mt
+    from matchtigs_tpu_torch.algos.greedytigs import GreedytigConfig, collect_candidates
+    from matchtigs_tpu_torch.ops import sssp
+    from matchtigs_tpu_torch.ops.matching import unbalanced_nodes
+
+    t0 = time.monotonic()
+    out_nodes, in_mask, _ = unbalanced_nodes(g)
+    cands, candidate_s = {}, {}
+    for engine in ("device", "host"):
+        sssp.reset_kernel_launches()
+        t = time.monotonic()
+        cands[engine] = collect_candidates(g, out_nodes, in_mask, k,
+                                           GreedytigConfig(k=k, engine=engine))
+        torch.cuda.synchronize()
+        candidate_s[engine] = time.monotonic() - t
+        if engine == "device":
+            launches = dict(sssp.KERNEL_LAUNCHES)
+    same_set = np.array_equal(*(candidate_keys(c, g.n_nodes) for c in cands.values()))
+    ids_start, ids_count, n_ids, _, _ = mt._matching_node_ids(g, g.imbalances())
+
+    packed_calls = [0]
+    packed = mt._collapse_candidates_packed
+
+    def counted(*a):
+        packed_calls[0] += 1
+        return packed(*a)
+    collapsed, collapse_s, routes = {}, {}, {}
+    mt._collapse_candidates_packed = counted
+    try:
+        for engine, ids in (("device", n_ids), ("host", max(n_ids, ARGSORT_IDS))):
+            packed_calls[0] = 0
+            t = time.monotonic()
+            collapsed[engine] = mt._collapse_candidates(g, cands[engine], ids_start,
+                                                        ids_count, ids)
+            collapse_s[engine] = time.monotonic() - t
+            routes[engine] = "packed" if packed_calls[0] else "argsort"
+    finally:
+        mt._collapse_candidates_packed = packed
+    same_columns = all(np.array_equal(a, b)
+                       for a, b in zip(collapsed["device"], collapsed["host"]))
+    phase("matchtigs_celegans_collapse", seconds=time.monotonic() - t0, n_ids=n_ids,
+          past_packed_id_limit=n_ids >= ARGSORT_IDS, routes=routes,
+          candidates=len(cands["device"]), candidate_s=candidate_s,
+          rows=len(collapsed["device"][0]), collapse_s=collapse_s, launches=launches,
+          candidate_sets_equal=bool(same_set), columns_equal=same_columns,
+          peak_host_rss_gib=peak_rss_gib())
+    check(launches == stage_launches,
+          f"C. elegans candidates launched {launches}, expected {stage_launches}")
+    check(same_set, "C. elegans candidates differ between the device and host engines")
+    check(routes["host"] == "argsort" and same_columns,
+          f"C. elegans collapses differ across engines and routes {routes}")
+    return launches
+
+
+def candidate_keys(cands, n_nodes: int) -> np.ndarray:
+    """The candidates' (u, v, d) triples as sorted int64 keys, one per
+    triple (``d`` below 128, ``n_nodes`` below 2^28)."""
+    check(int(cands.d.max(initial=0)) < 128 and n_nodes < 1 << 28,
+          f"candidate keys do not fit: {n_nodes} nodes")
+    keys = (cands.u * n_nodes + cands.v) << 7
+    keys |= cands.d
+    keys.sort()
+    return keys
+
+
+def matching_instance(log) -> dict:
+    """The optimal front's instance sizes and laps, from the INFO records
+    of ``matchtigs_tpu_torch.algos.matchtigs`` taken over one run."""
+    (n_ids,), (n_edges,), (matched,), (candidates,) = (log.args(msg)[0] for msg in (
+        "Matching instance has %d expanded nodes", "Collapsed to %d matching edges",
+        "Matched %d id pairs", "Found %d candidate shortest paths"))
+    return dict(candidates=candidates, matching_ids=n_ids, matching_edges=n_edges,
+                matched_pairs=matched, laps_s={a[0]: a[1] for a in log.args("%s: %.2fs")})
 
 
 def run_cli(path, kk, *options, out_flag="--greedytigs-fa-out", in_flag="--fa-in"):

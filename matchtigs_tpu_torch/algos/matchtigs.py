@@ -1,4 +1,4 @@
-# Copied from matchtigs_tpu/algos/matchtigs.py; MatchtigConfig has no batch_size and names its device, _connected_component_labels comes from graph/build.py, and comments keep their reasons and drop the JAX package's host timings.
+# Copied from matchtigs_tpu/algos/matchtigs.py; MatchtigConfig has no batch_size and names its device, _connected_component_labels comes from graph/build.py, comments keep their reasons and drop the JAX package's host timings, and _collapse_candidates's argsort route breaks ties as its packed route does (F7).
 """Optimal matchtigs: minimum plain-text representation with repetition.
 
 Capability-equivalent of ``MatchtigAlgorithm``
@@ -155,7 +155,10 @@ def _collapse_candidates(
 
     Returns (keys_a, keys_b, w, u, v) arrays, one row per unique id pair,
     sorted ascending by the pair key ``keys_a * n_ids + keys_b`` (the
-    apply step relies on this to skip a re-sort).
+    apply step relies on this to skip a re-sort), the same on either
+    route and in any candidate order.
+
+    Origin: F7, the JAX argsort route's ties broken by candidate order.
     """
     if len(candidates) == 0:
         e = np.empty(0, dtype=np.int64)
@@ -172,6 +175,7 @@ def _collapse_candidates(
         u, v, w, ids_start, ids_count, extras=(u, v)
     )
     keep = a != b  # same-id self-loops only from mirror biedges
+    o = (a < b)[keep]
     lo = np.minimum(a, b)[keep]
     hi = np.maximum(a, b)[keep]
     wr = wrow[keep]
@@ -180,13 +184,21 @@ def _collapse_candidates(
     key = lo * n_ids + hi
     # The same id pair can arise with different weights (unbalanced
     # self-mirror endpoints where d(u->v) != d(v->u)); keep the minimum
-    # weight per pair so the matching never uses the longer path.
+    # weight per pair so the matching never uses the longer path, and
+    # among equal weights the packed route's row: the minimum (w, o, su,
+    # sv), which does not depend on the candidates' order.
+    is_canon = np.arange(g.n_nodes, dtype=np.int64) <= g.mirror_node
+    tie = wr << 3
+    tie |= o.astype(np.int64) << 2
+    tie |= is_canon[ur].astype(np.int64) << 1
+    tie |= is_canon[vr]
     wmax = int(wr.max(initial=0))
-    if wmax < 128 and n_ids < (1 << 28):
-        # single packed key (one argsort) instead of a two-key lexsort
-        order = np.argsort(key * 128 + wr, kind="stable")
+    if wmax < 128 and n_ids < (1 << 26):
+        # single packed key (one argsort) instead of a two-key lexsort;
+        # equal keys are equal rows, so the sort need not be stable
+        order = np.argsort((key << 10) | tie)
     else:
-        order = np.lexsort((wr, key))
+        order = np.lexsort((tie, key))
     key_s = key[order]
     first = np.ones(len(key_s), dtype=bool)
     first[1:] = key_s[1:] != key_s[:-1]

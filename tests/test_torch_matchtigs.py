@@ -84,7 +84,9 @@ def test_dense_limit_identical_to_jax(dense_limit):
 def test_collapse_candidates_identical_to_jax(monkeypatch, name, path):
     """_collapse_candidates on the same candidates: the packed value-sort
     path (native, and its numpy fallback) and the argsort path (taken when
-    the id count reaches 2^23)."""
+    the id count reaches 2^23), the latter against the JAX package's packed
+    path at the true id count: its own argsort path keeps the first
+    minimum-weight row in candidate order (F7), which the port repairs."""
     jg, tg, _, _, k = _graphs(name)
     out_nodes, in_mask, _ = unbalanced_nodes(tg)
     cands = collect_candidates(tg, out_nodes, in_mask, k, GreedytigConfig(k=k, engine="host"))
@@ -95,9 +97,9 @@ def test_collapse_candidates_identical_to_jax(monkeypatch, name, path):
             monkeypatch.setattr(mod, "_expand_pack_native", lambda *a: None)
             monkeypatch.setattr(mod, "_dedup_resolve_native", lambda *a: None)
             monkeypatch.setattr(mod, "_dedup_unpack_native", lambda *a: None)
+    want = j_matchtigs._collapse_candidates(jg, cands, ids_start, ids_count, n_ids)
     if path == "argsort":
         n_ids = 1 << 23
-    want = j_matchtigs._collapse_candidates(jg, cands, ids_start, ids_count, n_ids)
     got = t_matchtigs._collapse_candidates(tg, cands, ids_start, ids_count, n_ids)
     assert len(got[0]) > 0
     for g_col, w_col in zip(got, want):
