@@ -22,7 +22,6 @@ Capability-equivalent of ``GreedytigAlgorithm``
 from __future__ import annotations
 
 import logging
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -33,6 +32,7 @@ from ..ops import euler
 from ..ops.candidates import Candidates
 from ..ops.device_graph import build_device_graph
 from ..ops.matching import greedy_accept, unbalanced_nodes
+from ..utils.tracing import ELAPSED, span
 
 logger = logging.getLogger(__name__)
 
@@ -288,30 +288,28 @@ def collect_candidates(
     stats.sources = len(out_nodes)
     host_search = _host_search_fn(config)
     if _use_host_engine(config):
-        dg = build_device_graph(g)
+        with span("search.device_graph"):
+            dg = build_device_graph(g)
         stats.host_routed = len(out_nodes)
-        t0 = time.monotonic()
-        res = host_search(
-            dg,
-            np.asarray(out_nodes, dtype=np.int64),
-            k - 1,
-            in_mask,
-            n_threads=config.host_threads,
-        )
-        logger.info(
-            "Native host Dijkstra: %d sources, %d candidates in %.2fs",
-            len(out_nodes),
-            len(res),
-            time.monotonic() - t0,
-        )
+        with span("search.host", timed=True) as sp:
+            res = host_search(
+                dg,
+                np.asarray(out_nodes, dtype=np.int64),
+                k - 1,
+                in_mask,
+                n_threads=config.host_threads,
+            )
+            sp.add(sources=len(out_nodes), candidates=len(res))
+            sp.lap(logger, "Native host Dijkstra: %d sources, %d candidates in %.2fs",
+                   len(out_nodes), len(res), ELAPSED)
         stats.candidates = len(res)
         return [res] if return_chunks else res
 
     devices, mesh = placement if placement is not None else _stage_placement(config)
-    t_phase = time.monotonic()
-    dg = build_device_graph(g, renumber=config.renumber)
-    logger.info("Device graph build (renumber=%s): %.2fs", config.renumber,
-                time.monotonic() - t_phase)
+    with span("search.device_graph", timed=True) as sp:
+        dg = build_device_graph(g, renumber=config.renumber)
+        sp.add(nodes=dg.n_nodes, slots=dg.nbr.size)
+        sp.lap(logger, "Device graph build (renumber=%s): %.2fs", config.renumber, ELAPSED)
     if dg.to_orig is not None:
         in_mask = np.asarray(in_mask)[dg.to_orig]
 
@@ -323,7 +321,7 @@ def collect_candidates(
         return res
 
     # Upload the adjacency first (once per graph, device and layout).
-    from ..ops.sssp import _can_pack_adj, batched_bounded_sssp_dispatch
+    from ..ops.sssp import KERNEL_LAUNCHES, _can_pack_adj, batched_bounded_sssp_dispatch
     from ..parallel.mesh import (
         allgather_candidates,
         process_source_slice,
@@ -334,10 +332,13 @@ def collect_candidates(
         dg.device_buffers(device, adj_packed=_can_pack_adj(dg, k - 1))
     chunks: list[Candidates] = []
 
-    pending, hard_sources = split_device_sources(
-        dg, dg.map_sources(np.asarray(out_nodes, dtype=np.int32)),
-        config.host_route_threshold,
-    )
+    with span("search.split") as sp:
+        pending, hard_sources = split_device_sources(
+            dg, dg.map_sources(np.asarray(out_nodes, dtype=np.int32)),
+            config.host_route_threshold,
+        )
+        sp.add(device_sources=len(pending),
+               host_routed=0 if hard_sources is None else len(hard_sources))
     if hard_sources is not None:
         stats.host_routed = len(hard_sources)
         logger.info(
@@ -350,16 +351,23 @@ def collect_candidates(
         """One asynchronous stage over ``pending`` at ``capacity``."""
         stats.stage_sources.append(len(pending))
         stats.capacity_final = capacity
-        t = time.monotonic()
-        if mesh is not None:
-            return t, sharded_bounded_sssp_dispatch(
-                dg, pending, k - 1, capacity, mesh,
-                schedule=config.device_schedule,
-            )
-        return t, batched_bounded_sssp_dispatch(
-            dg, pending, k - 1, capacity, devices[0],
-            schedule=config.device_schedule,
-        )
+        with span("search.dispatch") as sp:
+            before = dict(KERNEL_LAUNCHES) if sp else None
+            if mesh is not None:
+                handle = sharded_bounded_sssp_dispatch(
+                    dg, pending, k - 1, capacity, mesh,
+                    schedule=config.device_schedule,
+                )
+            else:
+                handle = batched_bounded_sssp_dispatch(
+                    dg, pending, k - 1, capacity, devices[0],
+                    schedule=config.device_schedule,
+                )
+            if sp:  # this stage's launches, by kernel
+                sp.add(sources=len(pending), capacity=capacity,
+                       **{f"launches_{name}": n - before[name]
+                          for name, n in KERNEL_LAUNCHES.items() if n != before[name]})
+        return handle
 
     # One stage per capacity: an asynchronous launch and one synchronizing
     # copy back; the host-routed Dijkstra runs on the CPU while the first
@@ -368,32 +376,22 @@ def collect_candidates(
     # Dijkstra on its slice of the sources and the candidates are gathered
     # on this thread, after the stages, so every process calls the same
     # collectives in the same order.
-    stage = launch() if len(pending) else None
     routed = None
-    if hard_sources is not None:
-        t_h = time.monotonic()
-        res = search_on_host(
-            hard_sources if mesh is None else process_source_slice(hard_sources)
-        )
-        if mesh is not None:
-            routed = res
-        elif len(res):
-            chunks.append(res)
-        logger.info(
-            "Host-routed Dijkstra (%d sources) during the device stage: "
-            "%.2fs", len(hard_sources), time.monotonic() - t_h,
-        )
-    while stage is not None:
-        t_dev, handle = stage
-        tri, over = handle.fetch_candidates(dg, pending, in_mask)
-        stage_t = time.monotonic() - t_dev
-        kernel_s = handle.kernel_seconds()
-        logger.info(
-            "Device stage: %d sources at capacity %d in %.2fs (kernel %s)",
-            len(pending), capacity, stage_t,
-            "not measured" if kernel_s is None else f"{kernel_s:.4f}s",
-        )
-        stats.stage_times.append(stage_t)
+    while len(pending):
+        # the stage's lap runs from its launch to its candidates
+        with span("search.stage", timed=True) as stage:
+            handle = launch()
+            if hard_sources is not None:  # while the first stage computes
+                routed = _host_routed(search_on_host, hard_sources, mesh, chunks)
+                hard_sources = None
+            tri, over = handle.fetch_candidates(dg, pending, in_mask)
+            kernel_s = handle.kernel_seconds()
+            stage.lap(
+                logger, "Device stage: %d sources at capacity %d in %.2fs (kernel %s)",
+                len(pending), capacity, ELAPSED,
+                "not measured" if kernel_s is None else f"{kernel_s:.4f}s",
+            )
+        stats.stage_times.append(stage.seconds)
         if kernel_s is not None:
             stats.stage_kernel_times.append(kernel_s)
         n_overflow = int(over.sum())
@@ -404,25 +402,23 @@ def collect_candidates(
         if len(tri):
             chunks.append(tri)
         pending = pending[over]
-        stage = None
         if not n_overflow:
             break
         stats.retries += 1
         if config.overflow_mode == "host":
             # Finish the heavy tail with the native host Dijkstra.
             stats.stage_sources.append(n_overflow)
-            t_tail = time.monotonic()
-            tail = search_on_host(
-                pending if mesh is None else process_source_slice(pending)
-            )
-            if mesh is not None:
-                tail = allgather_candidates(tail)
-            if len(tail):
-                chunks.append(tail)
-            logger.info(
-                "Finished %d overflowed sources on host in %.2fs",
-                n_overflow, time.monotonic() - t_tail,
-            )
+            with span("search.overflow_tail", timed=True) as sp:
+                tail = search_on_host(
+                    pending if mesh is None else process_source_slice(pending)
+                )
+                if mesh is not None:
+                    tail = allgather_candidates(tail)
+                if len(tail):
+                    chunks.append(tail)
+                sp.add(sources=n_overflow, candidates=len(tail))
+                sp.lap(logger, "Finished %d overflowed sources on host in %.2fs",
+                       n_overflow, ELAPSED)
             break
         if capacity >= config.max_capacity:
             raise RuntimeError(
@@ -433,7 +429,6 @@ def collect_candidates(
             "Retrying %d overflowed sources with capacity %d",
             n_overflow, capacity,
         )
-        stage = launch()
     if routed is not None:
         routed = allgather_candidates(routed)
         if len(routed):
@@ -442,9 +437,30 @@ def collect_candidates(
     if return_chunks:
         stats.candidates = sum(len(c) for c in chunks)
         return chunks
-    result = Candidates.concat(chunks)
+    with span("search.concat"):
+        result = Candidates.concat(chunks)
     stats.candidates = len(result)
     return result
+
+
+def _host_routed(search_on_host, hard_sources, mesh, chunks):
+    """The host-routed Dijkstra, run while the first device stage
+    computes.  Its candidates go to ``chunks``; under a mesh this process's
+    slice is returned instead, to be gathered after the stages."""
+    from ..parallel.mesh import process_source_slice
+
+    with span("search.host_routed", timed=True) as sp:
+        res = search_on_host(
+            hard_sources if mesh is None else process_source_slice(hard_sources)
+        )
+        sp.add(sources=len(hard_sources), candidates=len(res))
+        sp.lap(logger, "Host-routed Dijkstra (%d sources) during the device stage: "
+               "%.2fs", len(hard_sources), ELAPSED)
+    if mesh is not None:
+        return res
+    if len(res):
+        chunks.append(res)
+    return None
 
 
 def compute_greedytigs(
@@ -455,19 +471,22 @@ def compute_greedytigs(
     ``stats``, when given, is filled in place with the search-phase
     counters (device stage times/occupancy, host-routed counts).
     """
-    t_start = time.monotonic()
     k = config.k
-    out_nodes, in_mask, mult = unbalanced_nodes(g)
+    # timed: the "total" of the last lap runs from the scan's start
+    with span("search.scan", timed=True) as scan:
+        out_nodes, in_mask, mult = unbalanced_nodes(g)
+        n_in = int(in_mask.sum())
+        scan.add(out_nodes=len(out_nodes), in_nodes=n_in)
     logger.info(
         "Found %d nodes with missing outgoing and %d with missing incoming edges",
         len(out_nodes),
-        int(in_mask.sum()),
+        n_in,
     )
 
     _check_config(config)
-    placement = None if _use_host_engine(config) else _stage_placement(config)
+    with span("search.placement"):
+        placement = None if _use_host_engine(config) else _stage_placement(config)
     mesh = None if placement is None else placement[1]
-    t0 = time.monotonic()
     stats = stats if stats is not None else SearchStats()
     candidates = collect_candidates(
         g, out_nodes, in_mask, k, config, stats, return_chunks=True,
@@ -476,49 +495,45 @@ def compute_greedytigs(
     stats.log()
     if config.performance_counters and stats.candidates:
         # the opt-in ball counters need the concatenated columns
-        candidates = Candidates.concat(candidates)
-        stats.log_ball_sizes(candidates, g.n_nodes, out_nodes)
-    logger.info(
-        "Found %d candidate shortest paths in %.2fs (scan %.2fs)",
-        stats.candidates,
-        time.monotonic() - t0,
-        t0 - t_start,
-    )
+        with span("search.ball_sizes"):
+            candidates = Candidates.concat(candidates)
+            stats.log_ball_sizes(candidates, g.n_nodes, out_nodes)
+    logger.info("Found %d candidate shortest paths", stats.candidates)
 
-    t0 = time.monotonic()
-    accepted = None
-    if mesh is not None and isinstance(candidates, list):
-        # The acceptance sort runs over the mesh; the multiplicity scan
-        # stays on the host.  Ids or distances beyond the packed key's
-        # ranges take the host accept.
-        from ..ops.matching import greedy_accept_sorted_keys, pack_accept_keys
-        from ..parallel.mesh import sharded_accept_key_sort
+    with span("join.accept", timed=True) as sp:
+        accepted = None
+        if mesh is not None and isinstance(candidates, list):
+            # The acceptance sort runs over the mesh; the multiplicity scan
+            # stays on the host.  Ids or distances beyond the packed key's
+            # ranges take the host accept.
+            from ..ops.matching import greedy_accept_sorted_keys, pack_accept_keys
+            from ..parallel.mesh import sharded_accept_key_sort
 
-        keys = pack_accept_keys(candidates)
-        if keys is not None:
-            sorted_keys = sharded_accept_key_sort(keys, mesh)
-            accepted = greedy_accept_sorted_keys(g, sorted_keys, mult)
-            logger.info("Acceptance sort ran over %d mesh shards", mesh.size)
-    if accepted is None:
-        accepted = greedy_accept(g, candidates, mult)
-    logger.info(
-        "Accepted %d paths as cheap dummy edges in %.2fs",
-        len(accepted),
-        time.monotonic() - t0,
-    )
+            keys = pack_accept_keys(candidates)
+            if keys is not None:
+                sorted_keys = sharded_accept_key_sort(keys, mesh)
+                accepted = greedy_accept_sorted_keys(g, sorted_keys, mult)
+                logger.info("Acceptance sort ran over %d mesh shards", mesh.size)
+        if accepted is None:
+            accepted = greedy_accept(g, candidates, mult)
+        sp.add(accepted=len(accepted))
+        sp.lap(logger, "Accepted %d paths as cheap dummy edges in %.2fs",
+               len(accepted), ELAPSED)
 
     dummy_edge_id = 0
     if len(accepted):
         n = len(accepted)
-        dummy_ids = np.arange(1, n + 1, dtype=np.int64)
-        g.add_biedge_pairs(
-            src=accepted[:, 0].astype(np.int32),
-            dst=accepted[:, 1].astype(np.int32),
-            weight=accepted[:, 2],
-            handle=np.full(n, -1, dtype=np.int64),
-            forward=np.ones(n, dtype=bool),
-            dummy_id=dummy_ids,
-        )
+        with span("join.add_dummies") as sp:
+            dummy_ids = np.arange(1, n + 1, dtype=np.int64)
+            g.add_biedge_pairs(
+                src=accepted[:, 0].astype(np.int32),
+                dst=accepted[:, 1].astype(np.int32),
+                weight=accepted[:, 2],
+                handle=np.full(n, -1, dtype=np.int64),
+                forward=np.ones(n, dtype=bool),
+                dummy_id=dummy_ids,
+            )
+            sp.add(edges=2 * n)
         dummy_edge_id = n
 
     # Full-graph invariant scans: debug_assert! analogs, off in production
@@ -529,31 +544,29 @@ def compute_greedytigs(
         assert g.verify_node_pairing()
         assert g.verify_edge_mirror_property()
 
-    t0 = time.monotonic()
-    logger.info("Making graph Eulerian by adding breaking dummy edges")
-    euler.make_eulerian_with_breaking_edges(g, k, dummy_edge_id)
-    if not euler.decomposes_into_eulerian_bicycles(g):
-        raise AssertionError("Failed to make the graph Eulerian")
-    if debug_checks():
-        euler.assert_no_consecutive_dummy_edges(g, k)
-    logger.info("Balancing took %.2fs", time.monotonic() - t0)
+    with span("join.balance", timed=True) as sp:
+        logger.info("Making graph Eulerian by adding breaking dummy edges")
+        euler.make_eulerian_with_breaking_edges(g, k, dummy_edge_id)
+        if not euler.decomposes_into_eulerian_bicycles(g):
+            raise AssertionError("Failed to make the graph Eulerian")
+        if debug_checks():
+            euler.assert_no_consecutive_dummy_edges(g, k)
+        sp.lap(logger, "Balancing took %.2fs", ELAPSED)
 
-    t0 = time.monotonic()
-    if mesh is not None and mesh.world_size > 1:
-        # Euler + break split over the processes by component; the merge
-        # restores the single-process tig stream.
-        from ..parallel.mesh import distributed_euler_break
+    with span("join.euler_break", timed=True) as sp:
+        if mesh is not None and mesh.world_size > 1:
+            # Euler + break split over the processes by component; the merge
+            # restores the single-process tig stream.
+            from ..parallel.mesh import distributed_euler_break
 
-        tigs = distributed_euler_break(g, k)
-        logger.info("Euler+break ran over %d processes", mesh.world_size)
-    else:
-        cycles = euler.eulerian_bicycle_decomposition(g)
-        logger.info("Found %d Eulerian bicycles", len(cycles))
-        tigs = euler.break_cycles(g, cycles, k)
-    logger.info(
-        "Found %d greedytigs (euler+break %.2fs, total %.2fs)",
-        len(tigs),
-        time.monotonic() - t0,
-        time.monotonic() - t_start,
-    )
+            tigs = distributed_euler_break(g, k)
+            logger.info("Euler+break ran over %d processes", mesh.world_size)
+        else:
+            cycles = euler.eulerian_bicycle_decomposition(g)
+            logger.info("Found %d Eulerian bicycles", len(cycles))
+            tigs = euler.break_cycles(g, cycles, k)
+            sp.add(cycles=len(cycles))
+        sp.add(tigs=len(tigs))
+        sp.lap(logger, "Found %d greedytigs (euler+break %.2fs, total %.2fs)",
+               len(tigs), ELAPSED, scan)
     return tigs

@@ -31,6 +31,7 @@ Capability-equivalent of ``MatchtigAlgorithm``
 from __future__ import annotations
 
 import logging
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
@@ -39,6 +40,7 @@ from ..graph.bigraph import Bigraph
 from ..graph.build import _connected_component_labels
 from ..ops import euler
 from ..ops.matching import unbalanced_nodes
+from ..utils.tracing import ELAPSED, span
 from .greedytigs import GreedytigConfig, SearchStats, collect_candidates
 
 logger = logging.getLogger(__name__)
@@ -171,9 +173,20 @@ def _collapse_candidates(
         return _collapse_candidates_packed(
             g, u, v, w, ids_start, ids_count, n_ids
         )
-    a, b, wrow, uu, vv = _expand_candidate_ids(
-        u, v, w, ids_start, ids_count, extras=(u, v)
-    )
+    with span("collapse.expand") as sp:
+        a, b, wrow, uu, vv = _expand_candidate_ids(
+            u, v, w, ids_start, ids_count, extras=(u, v)
+        )
+        sp.add(rows=len(a))
+    with span("collapse.dedup") as sp:
+        lo, hi, wr, ur, vr = _dedup_argsort(g, a, b, wrow, uu, vv, n_ids)
+        sp.add(pairs=len(lo))
+    return lo, hi, wr, ur, vr
+
+
+def _dedup_argsort(g, a, b, wrow, uu, vv, n_ids):
+    """The argsort route's dedup: per id pair the row with the minimum
+    ``(w, o, su, sv)``, ascending by pair key."""
     keep = a != b  # same-id self-loops only from mirror biedges
     o = (a < b)[keep]
     lo = np.minimum(a, b)[keep]
@@ -367,52 +380,47 @@ def _collapse_candidates_packed(g, u, v, w, ids_start, ids_count, n_ids):
     id pair: the minimum weight, with a deterministic tie-break among
     equal-weight candidate rows (any of which is a real shortest path).
     """
-    import os as _osc
-    import time as _tc
-
-    _trc = _osc.environ.get("MATCHTIGS_NATIVE_TRACE")
-    _lc = [_tc.monotonic()]
-
-    def _clap(tag):
-        if _trc:
-            now = _tc.monotonic()
-            print(f"[collapse] {tag}: {now - _lc[0]:.2f}s", flush=True)
-            _lc[0] = now
-
     mirror = g.mirror_node.astype(np.int64)
     is_canon = np.arange(g.n_nodes, dtype=np.int64) <= mirror
 
-    packed = _expand_pack_native(
-        g, u, v, w, ids_start, ids_count, is_canon
-    )
-    _clap("expand+pack+sort (native)")
-    if packed is None:
-        # numpy fallback/oracle path
-        a, b, wrow, su, sv = _expand_candidate_ids(
-            u, v, w, ids_start, ids_count, extras=(is_canon[u], is_canon[v])
+    with span("collapse.expand") as sp:
+        packed = _expand_pack_native(
+            g, u, v, w, ids_start, ids_count, is_canon
         )
-        o = a <= b
-        packed = np.empty(len(a), dtype=np.int64)
-        np.left_shift(np.where(o, a, b), _IDB + 10, out=packed)
-        packed |= np.where(o, b, a) << 10
-        packed |= wrow << 3
-        packed |= o.astype(np.int64) << 2
-        packed |= su.astype(np.int64) << 1
-        packed |= sv.astype(np.int64)
-        packed.sort()
-    _clap("fallback branch")
+        if packed is None:
+            # numpy fallback/oracle path
+            a, b, wrow, su, sv = _expand_candidate_ids(
+                u, v, w, ids_start, ids_count, extras=(is_canon[u], is_canon[v])
+            )
+            o = a <= b
+            packed = np.empty(len(a), dtype=np.int64)
+            np.left_shift(np.where(o, a, b), _IDB + 10, out=packed)
+            packed |= np.where(o, b, a) << 10
+            packed |= wrow << 3
+            packed |= o.astype(np.int64) << 2
+            packed |= su.astype(np.int64) << 1
+            packed |= sv.astype(np.int64)
+            packed.sort()
+        sp.add(rows=len(packed))
     # canonical node per id: canonical class reps ascending own the
     # consecutive id ranges (ids_start is a cumsum over them).  Computed
     # before dedup so the fused native pass can resolve (ur, vr) during
     # emission — the numpy epilogue below (node_of_id/mirror gathers +
     # wheres over every survivor, full-length temporaries) then never
     # runs; it stays as the fallback oracle.
-    canon_nodes = np.flatnonzero((ids_count > 0) & is_canon)
-    node_of_id = np.repeat(canon_nodes, ids_count[canon_nodes])
-    res5 = _dedup_resolve_native(packed, node_of_id, mirror)
-    if res5 is not None:
-        _clap("dedup+resolve (fused native)")
-        return res5
+    with span("collapse.dedup") as sp:
+        canon_nodes = np.flatnonzero((ids_count > 0) & is_canon)
+        node_of_id = np.repeat(canon_nodes, ids_count[canon_nodes])
+        res5 = _dedup_resolve_native(packed, node_of_id, mirror)
+        if res5 is None:
+            res5 = _dedup_unpack_resolve(packed, node_of_id, mirror)
+        sp.add(pairs=len(res5[0]))
+    return res5
+
+
+def _dedup_unpack_resolve(packed, node_of_id, mirror):
+    """The fused native dedup's fallback: dedup and unpack (native, else
+    numpy), then the numpy gathers resolving each pair's nodes."""
     res = _dedup_unpack_native(packed)
     if res is not None:
         lo, hi, wk, o, su, sv = res
@@ -432,136 +440,146 @@ def _collapse_candidates_packed(g, u, v, w, ids_start, ids_count, n_ids):
         su = (vals >> 1) & 1
         sv = vals & 1
 
-    _clap("dedup+unpack")
     a_node = node_of_id[lo]
     b_node = node_of_id[hi]
     u_can = np.where(o == 1, a_node, b_node)
     v_can = np.where(o == 1, b_node, a_node)
     ur = np.where(su == 1, u_can, mirror[u_can])
     vr = np.where(sv == 1, v_can, mirror[v_can])
-    _clap("epilogue gathers")
     return lo, hi, wk, ur, vr
 
 
 def compute_matchtigs(g: Bigraph, config: MatchtigConfig) -> "Walks":
     """Mutates `g` (adds dummy biedges) and returns edge walks."""
-    import time
-
-    t0 = time.monotonic()
-
-    def lap(label):
-        nonlocal t0
-        t1 = time.monotonic()
-        logger.info("%s: %.2fs", label, t1 - t0)
-        t0 = t1
-
     k = config.k
-    out_nodes, in_mask, _ = unbalanced_nodes(g)
-    diff = g.imbalances()
-    logger.info(
-        "Found %d nodes with missing outgoing and %d with missing incoming edges",
-        len(out_nodes),
-        int(in_mask.sum()),
-    )
-
-    # All-pairs bounded shortest paths (targets = every in-node).
-    gt_config = GreedytigConfig(
-        k=k,
-        initial_capacity=config.initial_capacity,
-        max_capacity=config.max_capacity,
-        host_threads=config.host_threads,
-        performance_counters=config.performance_counters,
-        host_strategy=config.host_strategy,
-        engine=config.engine,
-        device=config.device,
-    )
-    stats = SearchStats()
-    candidates = collect_candidates(g, out_nodes, in_mask, k, gt_config, stats)
-    logger.info("Found %d candidate shortest paths", len(candidates))
-    lap("Candidate phase")
-    if config.performance_counters and len(candidates):
-        stats.log_ball_sizes(candidates, g.n_nodes, out_nodes)
-
-    # Expand binodes into matching ids and collapse candidates to id pairs.
-    ids_start, ids_count, n_ids, reps, offsets = _matching_node_ids(g, diff)
-    logger.info("Matching instance has %d expanded nodes", n_ids)
-
-    ka, kb, kw, ku, kv = _collapse_candidates(
-        g, candidates, ids_start, ids_count, n_ids
-    )
-    logger.info("Collapsed to %d matching edges", len(ka))
-    lap("Candidate collapse")
-
-    # Components of the bidirected graph (doubled edges + mirror pairing);
-    # each component's Eulerian tour needs >= 1 break, granted free by the
-    # per-component gadget (the reference's 4-extra-nodes-per-WCC).
-    comp = _bidirected_components(g)
-    rep_counts = (offsets[1:] - offsets[:-1]).astype(np.int64)
-    id_comp = np.repeat(comp[reps].astype(np.int64), rep_counts)
-    lap("WCC decomposition")
-
-    matched_pairs = _allocate_and_match(
-        ka, kb, kw, n_ids, id_comp, k, dense_limit=config.dense_limit
-    )
-    logger.info("Matched %d id pairs", len(matched_pairs))
-    lap("Matching")
-
-    if config.matching_file_prefix is not None:
-        inst = f"{config.matching_file_prefix}.matching"
-        with open(inst, "w") as f:
-            f.write(f"{n_ids} {len(ka)}\n")
-            for a, b, w in np.stack([ka, kb, kw], axis=1).tolist():
-                f.write(f"{a} {b} {w}\n")
-        with open(inst + ".solution", "w") as f:
-            f.write(f"{n_ids} {len(matched_pairs)}\n")
-            for a, b in matched_pairs:
-                f.write(f"{a} {b}\n")
-        logger.info("Wrote matching instance and solution to %s[.solution]", inst)
-
-    # Apply matching: insert cheap dummy biedges (lookup matched id pairs
-    # back to their (u, v, w) via the sorted pair keys), vectorized — the
-    # per-pair python loop cost a searchsorted call per pair.
-    mp = np.asarray(matched_pairs, dtype=np.int64).reshape(-1, 2)
-    dummy_edge_id = len(mp)
-    if len(mp):
-        # _collapse_candidates emits rows ascending in lo*n_ids+hi (it
-        # dedups via a sorted first-of-run), so no re-sort is needed.
-        pair_keys = ka * n_ids + kb
-        keys = np.minimum(mp[:, 0], mp[:, 1]) * n_ids + np.maximum(
-            mp[:, 0], mp[:, 1]
-        )
-        idx = np.searchsorted(pair_keys, keys)
-        assert np.all(pair_keys[idx] == keys), "matched pair has no edge"
-        g.add_biedge_pairs(
-            src=ku[idx],
-            dst=kv[idx],
-            weight=kw[idx],
-            handle=np.full(len(mp), -1, dtype=np.int64),
-            forward=np.ones(len(mp), dtype=bool),
-            dummy_id=np.arange(1, len(mp) + 1, dtype=np.int64),
+    with _phase("matchtigs.candidates", "Candidate phase"):
+        with span("search.scan") as sp:
+            out_nodes, in_mask, _ = unbalanced_nodes(g)
+            diff = g.imbalances()
+            n_in = int(in_mask.sum())
+            sp.add(out_nodes=len(out_nodes), in_nodes=n_in)
+        logger.info(
+            "Found %d nodes with missing outgoing and %d with missing incoming edges",
+            len(out_nodes),
+            n_in,
         )
 
-    from ..utils.debug import debug_checks
+        # All-pairs bounded shortest paths (targets = every in-node).
+        gt_config = GreedytigConfig(
+            k=k,
+            initial_capacity=config.initial_capacity,
+            max_capacity=config.max_capacity,
+            host_threads=config.host_threads,
+            performance_counters=config.performance_counters,
+            host_strategy=config.host_strategy,
+            engine=config.engine,
+            device=config.device,
+        )
+        stats = SearchStats()
+        candidates = collect_candidates(g, out_nodes, in_mask, k, gt_config, stats)
+        logger.info("Found %d candidate shortest paths", len(candidates))
 
-    if debug_checks():  # debug_assert! analogs, off in production
-        assert g.verify_node_pairing()
-        assert g.verify_edge_mirror_property()
-    lap("Apply matching")
+    with _phase("matchtigs.collapse", "Candidate collapse"):
+        if config.performance_counters and len(candidates):
+            with span("search.ball_sizes"):
+                stats.log_ball_sizes(candidates, g.n_nodes, out_nodes)
 
-    logger.info("Making graph Eulerian by completing unmatched nodes")
-    euler.make_eulerian_with_breaking_edges(g, k, dummy_edge_id)
-    if not euler.decomposes_into_eulerian_bicycles(g):
-        raise AssertionError("Failed to make the graph Eulerian")
-    if debug_checks():
-        euler.assert_no_consecutive_dummy_edges(g, k)
-    lap("Balance")
+        # Expand binodes into matching ids and collapse candidates to id pairs.
+        with span("collapse.ids") as sp:
+            ids_start, ids_count, n_ids, reps, offsets = _matching_node_ids(g, diff)
+            sp.add(ids=n_ids)
+        logger.info("Matching instance has %d expanded nodes", n_ids)
 
-    cycles = euler.eulerian_bicycle_decomposition(g)
-    logger.info("Found %d Eulerian bicycles", len(cycles))
-    tigs = euler.break_cycles(g, cycles, k)
-    logger.info("Found %d matchtigs", len(tigs))
-    lap("Euler + break")
+        ka, kb, kw, ku, kv = _collapse_candidates(
+            g, candidates, ids_start, ids_count, n_ids
+        )
+        logger.info("Collapsed to %d matching edges", len(ka))
+
+    with _phase("matchtigs.components", "WCC decomposition"):
+        # Components of the bidirected graph (doubled edges + mirror
+        # pairing); each component's Eulerian tour needs >= 1 break,
+        # granted free by the per-component gadget (the reference's
+        # 4-extra-nodes-per-WCC).
+        comp = _bidirected_components(g)
+        rep_counts = (offsets[1:] - offsets[:-1]).astype(np.int64)
+        id_comp = np.repeat(comp[reps].astype(np.int64), rep_counts)
+
+    with _phase("matchtigs.match", "Matching"):
+        matched_pairs = _allocate_and_match(
+            ka, kb, kw, n_ids, id_comp, k, dense_limit=config.dense_limit
+        )
+        logger.info("Matched %d id pairs", len(matched_pairs))
+
+    with _phase("matchtigs.apply", "Apply matching"):
+        if config.matching_file_prefix is not None:
+            with span("apply.write_instance"):
+                inst = f"{config.matching_file_prefix}.matching"
+                with open(inst, "w") as f:
+                    f.write(f"{n_ids} {len(ka)}\n")
+                    for a, b, w in np.stack([ka, kb, kw], axis=1).tolist():
+                        f.write(f"{a} {b} {w}\n")
+                with open(inst + ".solution", "w") as f:
+                    f.write(f"{n_ids} {len(matched_pairs)}\n")
+                    for a, b in matched_pairs:
+                        f.write(f"{a} {b}\n")
+            logger.info("Wrote matching instance and solution to %s[.solution]", inst)
+
+        # Apply matching: insert cheap dummy biedges (lookup matched id
+        # pairs back to their (u, v, w) via the sorted pair keys),
+        # vectorized — the per-pair python loop cost a searchsorted call
+        # per pair.
+        with span("join.add_dummies") as sp:
+            mp = np.asarray(matched_pairs, dtype=np.int64).reshape(-1, 2)
+            dummy_edge_id = len(mp)
+            if len(mp):
+                # _collapse_candidates emits rows ascending in lo*n_ids+hi
+                # (it dedups via a sorted first-of-run), so no re-sort is
+                # needed.
+                pair_keys = ka * n_ids + kb
+                keys = np.minimum(mp[:, 0], mp[:, 1]) * n_ids + np.maximum(
+                    mp[:, 0], mp[:, 1]
+                )
+                idx = np.searchsorted(pair_keys, keys)
+                assert np.all(pair_keys[idx] == keys), "matched pair has no edge"
+                g.add_biedge_pairs(
+                    src=ku[idx],
+                    dst=kv[idx],
+                    weight=kw[idx],
+                    handle=np.full(len(mp), -1, dtype=np.int64),
+                    forward=np.ones(len(mp), dtype=bool),
+                    dummy_id=np.arange(1, len(mp) + 1, dtype=np.int64),
+                )
+            sp.add(edges=2 * len(mp))
+
+        from ..utils.debug import debug_checks
+
+        if debug_checks():  # debug_assert! analogs, off in production
+            assert g.verify_node_pairing()
+            assert g.verify_edge_mirror_property()
+
+    with _phase("join.balance", "Balance"):
+        logger.info("Making graph Eulerian by completing unmatched nodes")
+        euler.make_eulerian_with_breaking_edges(g, k, dummy_edge_id)
+        if not euler.decomposes_into_eulerian_bicycles(g):
+            raise AssertionError("Failed to make the graph Eulerian")
+        if debug_checks():
+            euler.assert_no_consecutive_dummy_edges(g, k)
+
+    with _phase("join.euler_break", "Euler + break") as sp:
+        cycles = euler.eulerian_bicycle_decomposition(g)
+        logger.info("Found %d Eulerian bicycles", len(cycles))
+        tigs = euler.break_cycles(g, cycles, k)
+        logger.info("Found %d matchtigs", len(tigs))
+        sp.add(cycles=len(cycles), tigs=len(tigs))
     return tigs
+
+
+@contextmanager
+def _phase(name: str, label: str):
+    """A span that logs the front's INFO lap ``<label>: <seconds>s``."""
+    with span(name, timed=True) as sp:
+        sp.lap(logger, "%s: %.2fs", label, ELAPSED)
+        yield sp
 
 
 def _allocate_and_match(
@@ -590,111 +608,96 @@ def _allocate_and_match(
 
     if n_ids == 0:
         return np.empty((0, 2), dtype=np.int64)
-    import os as _os
-    import time as _time0
+    with span("match.components") as sp:
+        if len(ka):
+            cc = _connected_component_labels(n_ids, ka, kb)
+        else:
+            cc = np.arange(n_ids)
+        sp.add(ids=n_ids, edges=len(ka))
+    with span("match.buckets"):
+        has_edge = np.zeros(n_ids, dtype=bool)
+        has_edge[ka] = True
+        has_edge[kb] = True
 
-    _tr = _os.environ.get("MATCHTIGS_NATIVE_TRACE")
-    _lp = [_time0.monotonic()]
+        # Bucket edges by candidate component: native MT counting-sort order
+        # (labels are dense ints < n_ids) + first-of-run boundaries — the
+        # numpy argsort + np.unique chain re-sorted every row three times.
+        from ..utils.sorting import stable_order
 
-    def _slap(tag):
-        if _tr:
-            now = _time0.monotonic()
-            print(f"[match-setup] {tag}: {now - _lp[0]:.2f}s", flush=True)
-            _lp[0] = now
-
-    if len(ka):
-        cc = _connected_component_labels(n_ids, ka, kb)
-    else:
-        cc = np.arange(n_ids)
-    _slap("cc labels")
-    has_edge = np.zeros(n_ids, dtype=bool)
-    has_edge[ka] = True
-    has_edge[kb] = True
-
-    # Bucket edges by candidate component: native MT counting-sort order
-    # (labels are dense ints < n_ids) + first-of-run boundaries — the
-    # numpy argsort + np.unique chain re-sorted every row three times.
-    from ..utils.sorting import stable_order
-
-    def _runs(sorted_labels):
-        if not len(sorted_labels):
-            return np.empty(0, np.int64), np.empty(0, np.int64)
-        starts = np.concatenate(
-            [[0], np.flatnonzero(sorted_labels[1:] != sorted_labels[:-1]) + 1]
-        )
-        return sorted_labels[starts], starts
-
-    _slap("has_edge")
-    edge_cc = cc[ka]
-    order = stable_order(edge_cc.astype(np.int32, copy=False), n_ids)
-    # Permute (ka, kb, kw) and edge_cc by `order` in one native MT pass
-    # (gather_edges_cc_i64): np.stack(...)[order] plus the second
-    # fancy-index gather built fresh single-threaded full-length
-    # temporaries.
-    edges_sorted = None
-    cc_sorted = np.empty(0, dtype=np.int64)
-    if len(ka):
-        try:
-            from .. import native as _natg
-
-            _libg = _natg.load()
-        except ImportError:
-            _libg = None
-        if _libg is not None:
-            import os as _osg
-
-            n_e = len(ka)
-            edges_sorted = np.empty((n_e, 3), dtype=np.int64)
-            cc_sorted = np.empty(n_e, dtype=np.int64)
-            _libg.gather_edges_cc_i64(
-                n_e, _natg.as_ll_ptr(order),
-                _natg.as_ll_ptr(np.ascontiguousarray(ka, dtype=np.int64)),
-                _natg.as_ll_ptr(np.ascontiguousarray(kb, dtype=np.int64)),
-                _natg.as_ll_ptr(np.ascontiguousarray(kw, dtype=np.int64)),
-                _natg.as_ll_ptr(
-                    np.ascontiguousarray(edge_cc, dtype=np.int64)
-                ),
-                _natg.as_ll_ptr(edges_sorted),
-                _natg.as_ll_ptr(cc_sorted),
-                min(_osg.cpu_count() or 1, 16),
+        def _runs(sorted_labels):
+            if not len(sorted_labels):
+                return np.empty(0, np.int64), np.empty(0, np.int64)
+            starts = np.concatenate(
+                [[0], np.flatnonzero(sorted_labels[1:] != sorted_labels[:-1]) + 1]
             )
-        else:  # python fallback / oracle
-            edges_sorted = np.stack([ka, kb, kw], axis=1)[order]
-            cc_sorted = edge_cc[order]
-    cc_labels, cc_starts = _runs(cc_sorted)
-    cc_to_slot = {int(c): i for i, c in enumerate(cc_labels)}
-    cc_ends = np.append(cc_starts[1:], len(cc_sorted))
+            return sorted_labels[starts], starts
 
-    _slap("edge bucket")
-    # members per candidate component
-    ids = np.arange(n_ids)
-    cc_he = cc[has_edge]
-    member_order = stable_order(cc_he.astype(np.int32, copy=False), n_ids)
-    members_sorted = ids[has_edge][member_order]
-    mcc_sorted = cc_he[member_order]
-    m_labels, m_starts = _runs(mcc_sorted)
-    m_ends = np.append(m_starts[1:], len(mcc_sorted))
-    m_slot = {int(c): i for i, c in enumerate(m_labels)}
+        edge_cc = cc[ka]
+        order = stable_order(edge_cc.astype(np.int32, copy=False), n_ids)
+        # Permute (ka, kb, kw) and edge_cc by `order` in one native MT pass
+        # (gather_edges_cc_i64): np.stack(...)[order] plus the second
+        # fancy-index gather built fresh single-threaded full-length
+        # temporaries.
+        edges_sorted = None
+        cc_sorted = np.empty(0, dtype=np.int64)
+        if len(ka):
+            try:
+                from .. import native as _natg
 
-    _slap("member bucket")
-    def comp_members(c: int) -> np.ndarray:
-        i = m_slot[int(c)]
-        return members_sorted[m_starts[i] : m_ends[i]]
+                _libg = _natg.load()
+            except ImportError:
+                _libg = None
+            if _libg is not None:
+                import os as _osg
 
-    def comp_edges(c: int) -> np.ndarray:
-        i = cc_to_slot[int(c)]
-        return edges_sorted[cc_starts[i] : cc_ends[i]]
+                n_e = len(ka)
+                edges_sorted = np.empty((n_e, 3), dtype=np.int64)
+                cc_sorted = np.empty(n_e, dtype=np.int64)
+                _libg.gather_edges_cc_i64(
+                    n_e, _natg.as_ll_ptr(order),
+                    _natg.as_ll_ptr(np.ascontiguousarray(ka, dtype=np.int64)),
+                    _natg.as_ll_ptr(np.ascontiguousarray(kb, dtype=np.int64)),
+                    _natg.as_ll_ptr(np.ascontiguousarray(kw, dtype=np.int64)),
+                    _natg.as_ll_ptr(
+                        np.ascontiguousarray(edge_cc, dtype=np.int64)
+                    ),
+                    _natg.as_ll_ptr(edges_sorted),
+                    _natg.as_ll_ptr(cc_sorted),
+                    min(_osg.cpu_count() or 1, 16),
+                )
+            else:  # python fallback / oracle
+                edges_sorted = np.stack([ka, kb, kw], axis=1)[order]
+                cc_sorted = edge_cc[order]
+        cc_labels, cc_starts = _runs(cc_sorted)
+        cc_to_slot = {int(c): i for i, c in enumerate(cc_labels)}
+        cc_ends = np.append(cc_starts[1:], len(cc_sorted))
 
-    _slap("comp slices")
-    matched_pairs: list[tuple[int, int]] = []
-    # Bucket matching ids by input component once (sorted slices) instead
-    # of a full boolean scan per component.
-    wcc_order = stable_order(
-        id_comp.astype(np.int32, copy=False), int(id_comp.max(initial=0)) + 1
-    )
-    w_labels, w_starts = _runs(id_comp[wcc_order])
-    w_ends = np.append(w_starts[1:], n_ids)
-    _slap("wcc bucket")
+        # members per candidate component
+        ids = np.arange(n_ids)
+        cc_he = cc[has_edge]
+        member_order = stable_order(cc_he.astype(np.int32, copy=False), n_ids)
+        members_sorted = ids[has_edge][member_order]
+        mcc_sorted = cc_he[member_order]
+        m_labels, m_starts = _runs(mcc_sorted)
+        m_ends = np.append(m_starts[1:], len(mcc_sorted))
+        m_slot = {int(c): i for i, c in enumerate(m_labels)}
+
+        def comp_members(c: int) -> np.ndarray:
+            i = m_slot[int(c)]
+            return members_sorted[m_starts[i] : m_ends[i]]
+
+        def comp_edges(c: int) -> np.ndarray:
+            i = cc_to_slot[int(c)]
+            return edges_sorted[cc_starts[i] : cc_ends[i]]
+
+        matched_pairs: list[tuple[int, int]] = []
+        # Bucket matching ids by input component once (sorted slices) instead
+        # of a full boolean scan per component.
+        wcc_order = stable_order(
+            id_comp.astype(np.int32, copy=False), int(id_comp.max(initial=0)) + 1
+        )
+        w_labels, w_starts = _runs(id_comp[wcc_order])
+        w_ends = np.append(w_starts[1:], n_ids)
     # Periodic progress (the reference prints % / dots during its long
     # phases, greedytigs/mod.rs:514-522, matchtigs/mod.rs:224-232).
     import time as _time
@@ -744,55 +747,56 @@ def _allocate_and_match(
     # zero-absorber count, known without solving.  All per-WCC accounting
     # is vectorized: per-comp/per-wcc python loops over every WCC and
     # component (a tiny searchsorted call each) dominate at scale.
-    n_w = len(w_labels)
-    m_counts = (m_ends - m_starts).astype(np.int64)
-    comp_wcc_slot = (
-        np.searchsorted(w_labels, id_comp[members_sorted[m_starts]])
-        if len(m_labels)
-        else np.empty(0, dtype=np.int64)
-    )
-    odd_per_wcc = np.bincount(
-        comp_wcc_slot, weights=(m_counts % 2), minlength=n_w
-    ).astype(np.int64)
-    single_ids = np.flatnonzero(~has_edge)
-    singles_per_wcc = (
-        np.bincount(
-            np.searchsorted(w_labels, id_comp[single_ids]), minlength=n_w
+    with span("match.plan"):
+        n_w = len(w_labels)
+        m_counts = (m_ends - m_starts).astype(np.int64)
+        comp_wcc_slot = (
+            np.searchsorted(w_labels, id_comp[members_sorted[m_starts]])
+            if len(m_labels)
+            else np.empty(0, dtype=np.int64)
+        )
+        odd_per_wcc = np.bincount(
+            comp_wcc_slot, weights=(m_counts % 2), minlength=n_w
         ).astype(np.int64)
-        if len(single_ids)
-        else np.zeros(n_w, dtype=np.int64)
-    )
-    need_per_wcc = np.maximum(0, 2 - (odd_per_wcc + singles_per_wcc))
-    comp_need = (
-        need_per_wcc[comp_wcc_slot]
-        if len(m_labels)
-        else np.empty(0, dtype=np.int64)
-    )
-    note_progress(int(len(single_ids)))
+        single_ids = np.flatnonzero(~has_edge)
+        singles_per_wcc = (
+            np.bincount(
+                np.searchsorted(w_labels, id_comp[single_ids]), minlength=n_w
+            ).astype(np.int64)
+            if len(single_ids)
+            else np.zeros(n_w, dtype=np.int64)
+        )
+        need_per_wcc = np.maximum(0, 2 - (odd_per_wcc + singles_per_wcc))
+        comp_need = (
+            need_per_wcc[comp_wcc_slot]
+            if len(m_labels)
+            else np.empty(0, dtype=np.int64)
+        )
+        note_progress(int(len(single_ids)))
 
-    comp_deletions: dict[int, tuple[int, ...]] = {}
-    for si in np.flatnonzero(comp_need > 0):
-        nd = int(comp_need[si])
-        comp_deletions[int(m_labels[si])] = (0, 1) if nd == 1 else (0, 1, 2)
+        comp_deletions: dict[int, tuple[int, ...]] = {}
+        for si in np.flatnonzero(comp_need > 0):
+            nd = int(comp_need[si])
+            comp_deletions[int(m_labels[si])] = (0, 1) if nd == 1 else (0, 1, 2)
 
-    solved: dict[int, dict] = {}
-    # Pairs of components solved by the native batch call, sorted by
-    # component label.
-    batch_pair_cc = np.empty(0, dtype=np.int64)
-    batch_pair_a = np.empty(0, dtype=np.int64)
-    batch_pair_b = np.empty(0, dtype=np.int64)
-    try:
-        from .. import native
+        solved: dict[int, dict] = {}
+        # Pairs of components solved by the native batch call, sorted by
+        # component label.
+        batch_pair_cc = np.empty(0, dtype=np.int64)
+        batch_pair_a = np.empty(0, dtype=np.int64)
+        batch_pair_b = np.empty(0, dtype=np.int64)
+        try:
+            from .. import native
 
-        native.load()
-        have_native = True
-    except ImportError:
-        have_native = False
-    if not have_native:
-        # python fallback (no C++ toolchain): every component solves on
-        # the per-component path below
-        for si in range(len(m_labels)):
-            comp_deletions.setdefault(int(m_labels[si]), (0,))
+            native.load()
+            have_native = True
+        except ImportError:
+            have_native = False
+        if not have_native:
+            # python fallback (no C++ toolchain): every component solves on
+            # the per-component path below
+            for si in range(len(m_labels)):
+                comp_deletions.setdefault(int(m_labels[si]), (0,))
     if len(m_labels):
         import os
         from concurrent.futures import ThreadPoolExecutor
@@ -817,163 +821,158 @@ def _allocate_and_match(
                 max_weight_matching_sparse_batch,
             )
 
-            t0 = _time.monotonic()
-            _lap_prev = [t0]
+            with span("match.batch", timed=True) as batch:
+                with span("match.batch.prep"):
+                    slot_dels0 = comp_need == 0
+                    slot_sel = np.nonzero(slot_dels0)[0]
+                    if not len(slot_sel):
+                        return
+                    # label -> slot as a direct array gather, not a searchsorted
+                    # binary probe per edge
+                    slot_of_label = np.zeros(n_ids, dtype=np.int64)
+                    slot_of_label[m_labels] = np.arange(len(m_labels))
+                    # node slices: members_sorted masked to selected slots
+                    sel_m = slot_dels0[slot_of_label[mcc_sorted]]
+                    all_m = bool(sel_m.all())
+                    batch_members = members_sorted if all_m else members_sorted[sel_m]
+                    NB = len(batch_members)
+                    counts = (m_ends - m_starts)[slot_sel]
+                    node_off = np.zeros(len(slot_sel) + 1, dtype=np.int64)
+                    np.cumsum(counts, out=node_off[1:])
+                    # global id -> batch position
+                    pos_of_id = np.empty(n_ids, dtype=np.int64)
+                    pos_of_id[members_sorted] = np.arange(len(members_sorted))
+                    new_pos = np.full(len(members_sorted), -1, dtype=np.int64)
+                    if all_m:
+                        new_pos = np.arange(NB)
+                    else:
+                        new_pos[np.nonzero(sel_m)[0]] = np.arange(NB)
+                    # edge slices + profit transform + per-pair max-profit dedup
+                    # (same stable tie-break as component_matching_variants)
+                    sel_e = slot_dels0[slot_of_label[cc_sorted]]
+                    # the common case is EVERY component in the batch (no
+                    # deletion variants anywhere): skip the full-length copy
+                    es = edges_sorted if bool(sel_e.all()) else edges_sorted[sel_e]
+                    if all_m:  # new_pos is the identity: skip one 35M gather each
+                        ubp = pos_of_id[es[:, 0]]
+                        vbp = pos_of_id[es[:, 1]]
+                    else:
+                        ubp = new_pos[pos_of_id[es[:, 0]]]
+                        vbp = new_pos[pos_of_id[es[:, 1]]]
+                with span("match.batch.dedup"):
+                    lo = np.minimum(ubp, vbp)
+                    hi = np.maximum(ubp, vbp)
+                    dist = es[:, 2]
+                    if NB < (1 << 28) and int(dist.max(initial=0)) < 128:
+                        # Per-pair max-profit dedup: (lo*NB + hi) << 7 | dist
+                        # ascending == (pair key asc, profit DESC), exactly the
+                        # lexsort((-profit, key)) below.  The native pass
+                        # (pair_dedup_min_dist) does MT pack + MT 64-bit LSD
+                        # radix + MT boundary dedup + survivor unpack in one
+                        # call with zero numpy temporaries — the numpy version
+                        # below (kept as the fallback and parity oracle) pays
+                        # six fresh full-length temporaries whose first-touch
+                        # faults dominate.
+                        native_trip = None
+                        if have_native:
+                            import ctypes as _ct
 
-            def _lap(tag):
-                import os as _os
-                if _os.environ.get("MATCHTIGS_NATIVE_TRACE"):
-                    now = _time.monotonic()
-                    print(f"[batch-glue] {tag}: {now - _lap_prev[0]:.2f}s",
-                          flush=True)
-                    _lap_prev[0] = now
+                            from .. import native as _nat
+                            from ..ops.sssp import _wrap_native_triples
 
-            slot_dels0 = comp_need == 0
-            slot_sel = np.nonzero(slot_dels0)[0]
-            if not len(slot_sel):
-                return
-            # label -> slot as a direct array gather, not a searchsorted
-            # binary probe per edge
-            slot_of_label = np.zeros(n_ids, dtype=np.int64)
-            slot_of_label[m_labels] = np.arange(len(m_labels))
-            # node slices: members_sorted masked to selected slots
-            sel_m = slot_dels0[slot_of_label[mcc_sorted]]
-            all_m = bool(sel_m.all())
-            batch_members = members_sorted if all_m else members_sorted[sel_m]
-            NB = len(batch_members)
-            counts = (m_ends - m_starts)[slot_sel]
-            node_off = np.zeros(len(slot_sel) + 1, dtype=np.int64)
-            np.cumsum(counts, out=node_off[1:])
-            # global id -> batch position
-            pos_of_id = np.empty(n_ids, dtype=np.int64)
-            pos_of_id[members_sorted] = np.arange(len(members_sorted))
-            new_pos = np.full(len(members_sorted), -1, dtype=np.int64)
-            if all_m:
-                new_pos = np.arange(NB)
-            else:
-                new_pos[np.nonzero(sel_m)[0]] = np.arange(NB)
-            # edge slices + profit transform + per-pair max-profit dedup
-            # (same stable tie-break as component_matching_variants)
-            _lap("slot maps + node slices")
-            sel_e = slot_dels0[slot_of_label[cc_sorted]]
-            # the common case is EVERY component in the batch (no
-            # deletion variants anywhere): skip the full-length copy
-            es = edges_sorted if bool(sel_e.all()) else edges_sorted[sel_e]
-            if all_m:  # new_pos is the identity: skip one 35M gather each
-                ubp = pos_of_id[es[:, 0]]
-                vbp = pos_of_id[es[:, 1]]
-            else:
-                ubp = new_pos[pos_of_id[es[:, 0]]]
-                vbp = new_pos[pos_of_id[es[:, 1]]]
-            _lap("edge select + gathers")
-            lo = np.minimum(ubp, vbp)
-            hi = np.maximum(ubp, vbp)
-            dist = es[:, 2]
-            if NB < (1 << 28) and int(dist.max(initial=0)) < 128:
-                # Per-pair max-profit dedup: (lo*NB + hi) << 7 | dist
-                # ascending == (pair key asc, profit DESC), exactly the
-                # lexsort((-profit, key)) below.  The native pass
-                # (pair_dedup_min_dist) does MT pack + MT 64-bit LSD
-                # radix + MT boundary dedup + survivor unpack in one
-                # call with zero numpy temporaries — the numpy version
-                # below (kept as the fallback and parity oracle) pays
-                # six fresh full-length temporaries whose first-touch
-                # faults dominate.
-                native_trip = None
-                if have_native:
-                    import ctypes as _ct
-
-                    from .. import native as _nat
-                    from ..ops.sssp import _wrap_native_triples
-
-                    lib2 = _nat.load()
-                    buf_ptr = _ct.POINTER(_ct.c_longlong)()
-                    d_ptr = _ct.cast(
-                        es.ctypes.data + 2 * es.strides[1],
-                        _ct.POINTER(_ct.c_longlong),
+                            lib2 = _nat.load()
+                            buf_ptr = _ct.POINTER(_ct.c_longlong)()
+                            d_ptr = _ct.cast(
+                                es.ctypes.data + 2 * es.strides[1],
+                                _ct.POINTER(_ct.c_longlong),
+                            )
+                            cnt = int(
+                                lib2.pair_dedup_min_dist(
+                                    len(lo), _nat.as_ll_ptr(lo),
+                                    _nat.as_ll_ptr(hi), d_ptr,
+                                    es.strides[0] // 8, NB,
+                                    min(os.cpu_count() or 1, 16),
+                                    _ct.byref(buf_ptr),
+                                )
+                            )
+                            if cnt >= 0:
+                                native_trip = _wrap_native_triples(
+                                    lib2, buf_ptr, cnt
+                                )
+                        if native_trip is not None:
+                            lo, hi = native_trip.u, native_trip.v
+                            vals2 = lo  # row count for the log line
+                            profit = (
+                                np.int64(k - 1) - native_trip.d
+                            ) * np.int64(COUNT_SCALE) + 1
+                        else:
+                            packed2 = ((lo * np.int64(NB) + hi) << 7) | dist
+                            _value_sort(packed2)
+                            key2 = packed2 >> 7
+                            keep2 = np.empty(len(key2), dtype=bool)
+                            if len(keep2):
+                                keep2[0] = True
+                                np.not_equal(key2[1:], key2[:-1], out=keep2[1:])
+                            vals2 = packed2[keep2]
+                            key2 = vals2 >> 7
+                            lo = key2 // np.int64(NB)
+                            hi = key2 - lo * np.int64(NB)
+                            profit = (np.int64(k - 1) - (vals2 & 127)) * np.int64(
+                                COUNT_SCALE
+                            ) + 1
+                    else:  # k > 127 or giant batches: index-permutation path
+                        profit = (np.int64(k - 1) - dist) * np.int64(COUNT_SCALE) + 1
+                        key = lo * np.int64(NB) + hi
+                        order2 = np.lexsort((-profit, key))
+                        keep2 = np.ones(len(order2), dtype=bool)
+                        keep2[1:] = key[order2][1:] != key[order2][:-1]
+                        sel2 = order2[keep2]
+                        vals2 = sel2  # row count for the log line
+                        lo, hi, profit = lo[sel2], hi[sel2], profit[sel2]
+                with span("match.batch.solve") as sp:
+                    assert np.all(profit >= 1)
+                    # component slot per surviving edge = slot of its lo position
+                    slot_per_pos = np.repeat(
+                        np.arange(len(slot_sel), dtype=np.int64), counts
                     )
-                    cnt = int(
-                        lib2.pair_dedup_min_dist(
-                            len(lo), _nat.as_ll_ptr(lo),
-                            _nat.as_ll_ptr(hi), d_ptr,
-                            es.strides[0] // 8, NB,
-                            min(os.cpu_count() or 1, 16),
-                            _ct.byref(buf_ptr),
-                        )
+                    rank2 = slot_per_pos[lo]
+                    edge_off = np.searchsorted(
+                        rank2, np.arange(len(slot_sel) + 1)
+                    ).astype(np.int64)
+                    if sp:
+                        sizes = np.diff(edge_off)
+                        sp.add(components=len(slot_sel), edges=int(edge_off[-1]),
+                               largest_component_edges=int(sizes.max(initial=0)),
+                               largest_component_ids=int(counts.max(initial=0)))
+                    mate, _ = max_weight_matching_sparse_batch(
+                        node_off,
+                        edge_off,
+                        lo - node_off[rank2],
+                        hi - node_off[rank2],
+                        profit,
                     )
-                    if cnt >= 0:
-                        native_trip = _wrap_native_triples(
-                            lib2, buf_ptr, cnt
-                        )
-                if native_trip is not None:
-                    lo, hi = native_trip.u, native_trip.v
-                    vals2 = lo  # row count for the log line
-                    profit = (
-                        np.int64(k - 1) - native_trip.d
-                    ) * np.int64(COUNT_SCALE) + 1
-                else:
-                    packed2 = ((lo * np.int64(NB) + hi) << 7) | dist
-                    _value_sort(packed2)
-                    key2 = packed2 >> 7
-                    keep2 = np.empty(len(key2), dtype=bool)
-                    if len(keep2):
-                        keep2[0] = True
-                        np.not_equal(key2[1:], key2[:-1], out=keep2[1:])
-                    vals2 = packed2[keep2]
-                    key2 = vals2 >> 7
-                    lo = key2 // np.int64(NB)
-                    hi = key2 - lo * np.int64(NB)
-                    profit = (np.int64(k - 1) - (vals2 & 127)) * np.int64(
-                        COUNT_SCALE
-                    ) + 1
-            else:  # k > 127 or giant batches: index-permutation path
-                profit = (np.int64(k - 1) - dist) * np.int64(COUNT_SCALE) + 1
-                key = lo * np.int64(NB) + hi
-                order2 = np.lexsort((-profit, key))
-                keep2 = np.ones(len(order2), dtype=bool)
-                keep2[1:] = key[order2][1:] != key[order2][:-1]
-                sel2 = order2[keep2]
-                vals2 = sel2  # row count for the log line
-                lo, hi, profit = lo[sel2], hi[sel2], profit[sel2]
-            _lap("pack-sort-dedup")
-            assert np.all(profit >= 1)
-            # component slot per surviving edge = slot of its lo position
-            slot_per_pos = np.repeat(
-                np.arange(len(slot_sel), dtype=np.int64), counts
-            )
-            rank2 = slot_per_pos[lo]
-            edge_off = np.searchsorted(
-                rank2, np.arange(len(slot_sel) + 1)
-            ).astype(np.int64)
-            _lap("edge_off + slots")
-            mate, _ = max_weight_matching_sparse_batch(
-                node_off,
-                edge_off,
-                lo - node_off[rank2],
-                hi - node_off[rank2],
-                profit,
-            )
-            _lap("native batch solve")
-            # vectorized pair extraction (ascending batch position =
-            # ascending member id per component, matching the solo path)
-            node_base = np.repeat(node_off[:-1], counts)
-            pos = np.arange(NB)
-            partner = node_base + np.maximum(mate, 0)
-            valid = (mate >= 0) & (pos < partner)
-            batch_pair_a = batch_members[pos[valid]]
-            batch_pair_b = batch_members[partner[valid]]
-            batch_pair_cc = m_labels[slot_sel[slot_per_pos[valid]]]
-            _lap("pair extraction")
-            logger.info(
-                "Batch-solved %d matching components (%d ids, %d edges, "
-                "%d pairs) in %.1fs",
-                len(slot_sel), NB, len(vals2), len(batch_pair_a),
-                _time.monotonic() - t0,
-            )
+                with span("match.batch.pairs"):
+                    # vectorized pair extraction (ascending batch position =
+                    # ascending member id per component, matching the solo path)
+                    node_base = np.repeat(node_off[:-1], counts)
+                    pos = np.arange(NB)
+                    partner = node_base + np.maximum(mate, 0)
+                    valid = (mate >= 0) & (pos < partner)
+                    batch_pair_a = batch_members[pos[valid]]
+                    batch_pair_b = batch_members[partner[valid]]
+                    batch_pair_cc = m_labels[slot_sel[slot_per_pos[valid]]]
+                batch.add(components=len(slot_sel), ids=NB, edges=len(vals2),
+                          pairs=len(batch_pair_a))
+                batch.lap(
+                    logger,
+                    "Batch-solved %d matching components (%d ids, %d edges, "
+                    "%d pairs) in %.1fs",
+                    len(slot_sel), NB, len(vals2), len(batch_pair_a), ELAPSED,
+                )
             note_progress(NB)
 
         n_workers = min(os.cpu_count() or 1, max(1, len(solo) + 1))
-        with ThreadPoolExecutor(max_workers=n_workers) as ex:
+        with span("match.solve"), ThreadPoolExecutor(max_workers=n_workers) as ex:
             solo_futs = {
                 c: ex.submit(solve_uncached, c, comp_deletions[c])
                 for c in solo
@@ -982,8 +981,10 @@ def _allocate_and_match(
                 # the native call releases the GIL; solo variant solves
                 # overlap on the pool threads
                 run_batch()
-            for c, fut in solo_futs.items():
-                solved[c] = fut.result()
+            with span("match.solo") as sp:
+                for c, fut in solo_futs.items():
+                    solved[c] = fut.result()
+                sp.add(components=len(solo_futs))
 
     def solve(c, deletions):
         return solved[int(c)]
@@ -1029,52 +1030,52 @@ def _allocate_and_match(
             out.extend(variants[c][j][1])
         return out
 
-    # Emission order (matches the historical per-WCC loop byte for byte):
-    # WCCs ascending; within a WCC components ascending; within a
-    # component ascending member id.  Batch pairs are (component,
-    # position)-sorted already, so one stable sort by WCC slot orders
-    # them; the rare knapsack WCCs' python pairs splice in between.
-    if len(batch_pair_cc):
-        pair_w = comp_wcc_slot[np.searchsorted(m_labels, batch_pair_cc)]
-        emit = np.argsort(pair_w, kind="stable")
-        ea, eb, ew_sorted = (
-            batch_pair_a[emit], batch_pair_b[emit], pair_w[emit]
-        )
-    else:
-        ea = eb = np.empty(0, dtype=np.int64)
-        ew_sorted = np.empty(0, dtype=np.int64)
-    needy = np.flatnonzero(need_per_wcc > 0)
-    if have_native:
-        needy_with_comps = needy[
-            np.isin(needy, comp_wcc_slot, assume_unique=False)
-        ]
-        segments: list[np.ndarray] = []
-        prev = 0
-        for wslot in needy_with_comps.tolist():
-            cut = int(np.searchsorted(ew_sorted, wslot))
-            segments.append(np.stack([ea[prev:cut], eb[prev:cut]], axis=1))
-            kn = knapsack_wcc(wslot)
-            segments.append(
-                np.asarray(kn, dtype=np.int64).reshape(-1, 2)
+    with span("match.emit"):
+        # Emission order (matches the historical per-WCC loop byte for byte):
+        # WCCs ascending; within a WCC components ascending; within a
+        # component ascending member id.  Batch pairs are (component,
+        # position)-sorted already, so one stable sort by WCC slot orders
+        # them; the rare knapsack WCCs' python pairs splice in between.
+        if len(batch_pair_cc):
+            pair_w = comp_wcc_slot[np.searchsorted(m_labels, batch_pair_cc)]
+            emit = np.argsort(pair_w, kind="stable")
+            ea, eb, ew_sorted = (
+                batch_pair_a[emit], batch_pair_b[emit], pair_w[emit]
             )
-            prev = cut
-        segments.append(np.stack([ea[prev:], eb[prev:]], axis=1))
-        return (
-            np.concatenate(segments)
-            if len(segments) > 1
-            else segments[0]
-        )
+        else:
+            ea = eb = np.empty(0, dtype=np.int64)
+            ew_sorted = np.empty(0, dtype=np.int64)
+        needy = np.flatnonzero(need_per_wcc > 0)
+        if have_native:
+            needy_with_comps = needy[
+                np.isin(needy, comp_wcc_slot, assume_unique=False)
+            ]
+            segments: list[np.ndarray] = []
+            prev = 0
+            for wslot in needy_with_comps.tolist():
+                cut = int(np.searchsorted(ew_sorted, wslot))
+                segments.append(np.stack([ea[prev:cut], eb[prev:cut]], axis=1))
+                kn = knapsack_wcc(wslot)
+                segments.append(
+                    np.asarray(kn, dtype=np.int64).reshape(-1, 2)
+                )
+                prev = cut
+            segments.append(np.stack([ea[prev:], eb[prev:]], axis=1))
+            return (
+                np.concatenate(segments)
+                if len(segments) > 1
+                else segments[0]
+            )
 
-    # python fallback (no native toolchain): per-WCC loop over `solved`
-    for wi in range(n_w):
-        if need_per_wcc[wi] > 0:
-            matched_pairs.extend(knapsack_wcc(wi))
-            continue
-        comp_ids = m_labels[np.flatnonzero(comp_wcc_slot == wi)]
-        for c in comp_ids:
-            matched_pairs.extend(solve(c, (0,))[0][1])
-    return np.asarray(matched_pairs, dtype=np.int64).reshape(-1, 2)
-
+        # python fallback (no native toolchain): per-WCC loop over `solved`
+        for wi in range(n_w):
+            if need_per_wcc[wi] > 0:
+                matched_pairs.extend(knapsack_wcc(wi))
+                continue
+            comp_ids = m_labels[np.flatnonzero(comp_wcc_slot == wi)]
+            for c in comp_ids:
+                matched_pairs.extend(solve(c, (0,))[0][1])
+        return np.asarray(matched_pairs, dtype=np.int64).reshape(-1, 2)
 
 
 def _bidirected_components(g: Bigraph) -> np.ndarray:

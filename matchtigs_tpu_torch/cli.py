@@ -17,9 +17,9 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 import resource
 import sys
-import time
 
 from .algos.eulertigs import EulertigConfig, compute_eulertigs
 from .algos.greedytigs import GreedytigConfig, compute_greedytigs
@@ -32,6 +32,7 @@ from .io.writers import (
     write_walks_fasta,
     write_walks_gfa,
 )
+from .utils.tracing import ELAPSED, span
 
 logger = logging.getLogger("matchtigs_tpu_torch")
 
@@ -218,16 +219,17 @@ def _log_mem(label: str) -> None:
     """Per-phase memory snapshot at info level — the analog of the
     reference's log_memory_usage after every phase
     (upstream src/bin.rs:842-848, called at 872, 921, 998)."""
-    peak_kb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
-    current_kb = None
-    try:
-        with open("/proc/self/status") as f:
-            for line in f:
-                if line.startswith("VmRSS:"):
-                    current_kb = int(line.split()[1])
-                    break
-    except OSError:
-        pass
+    with span("cli.memory"):
+        peak_kb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        current_kb = None
+        try:
+            with open("/proc/self/status") as f:
+                for line in f:
+                    if line.startswith("VmRSS:"):
+                        current_kb = int(line.split()[1])
+                        break
+        except OSError:
+            pass
     if current_kb is not None:
         logger.info(
             "%s memory usage: %.1f MiB physical (peak %.1f MiB)",
@@ -240,26 +242,34 @@ def _log_mem(label: str) -> None:
 
 
 def main(argv: list[str] | None = None) -> int:
-    opts = build_parser().parse_args(argv)
-    logging.basicConfig(
-        level=getattr(logging, opts.log_level.upper(), logging.INFO),
-        format="%(asctime)s %(levelname)s [%(name)s] %(message)s",
-    )
-    logger.info("matchtigs-tpu-torch starting")
-    from .utils.malloc_tuning import tune_malloc
+    with span("cli") as root:
+        with span("cli.setup"):
+            opts = build_parser().parse_args(argv)
+            logging.basicConfig(
+                level=getattr(logging, opts.log_level.upper(), logging.INFO),
+                format="%(asctime)s %(levelname)s [%(name)s] %(message)s",
+            )
+            logger.info("matchtigs-tpu-torch starting")
+            from .utils.malloc_tuning import tune_malloc
 
-    tune_malloc()
+            tune_malloc()
+        return _run(opts, root)
 
-    load_start = time.monotonic()
-    store, k, gfa_header, links = load_unitigs(
-        gfa_in=opts.gfa_in, fa_in=opts.fa_in, bcalm_in=opts.bcalm_in, k=opts.k
-    )
-    if links:
-        logger.info("Building graph from %d explicit topology links", len(links))
-        graph = build_bigraph_from_links(store, links, k)
-    else:
-        graph = build_bigraph_from_unitigs(store, k)
-    logger.info("Loading took %.1f seconds", time.monotonic() - load_start)
+
+def _run(opts, root) -> int:
+    with span("load", timed=True) as load:
+        store, k, gfa_header, links = load_unitigs(
+            gfa_in=opts.gfa_in, fa_in=opts.fa_in, bcalm_in=opts.bcalm_in, k=opts.k
+        )
+        if links:
+            logger.info("Building graph from %d explicit topology links", len(links))
+            graph = build_bigraph_from_links(store, links, k)
+        else:
+            graph = build_bigraph_from_unitigs(store, k)
+        load.lap(logger, "Loading took %.1f seconds", ELAPSED)
+    if root:
+        path = opts.gfa_in or opts.fa_in or opts.bcalm_in
+        root.add(unitigs=len(store), input_bytes=os.path.getsize(path))
     logger.info("k = %d", k)
     logger.info(
         "Graph has %d nodes and %d edges", graph.n_nodes, graph.n_edges
@@ -282,12 +292,14 @@ def main(argv: list[str] | None = None) -> int:
     if wants_search:
         from .utils.malloc_tuning import available_memory_bytes, prewarm_heap
 
-        prewarm = min(224 * graph.n_edges, 12 << 30)
-        avail = available_memory_bytes()
-        if avail is not None:
-            prewarm = min(prewarm, avail // 2)
-        if prewarm > (64 << 20) and prewarm_heap(prewarm):
-            logger.info("Prewarmed %.1f GiB of heap arena", prewarm / 2**30)
+        with span("prewarm") as sp:
+            prewarm = min(224 * graph.n_edges, 12 << 30)
+            avail = available_memory_bytes()
+            if avail is not None:
+                prewarm = min(prewarm, avail // 2)
+            if prewarm > (64 << 20) and prewarm_heap(prewarm):
+                sp.add(bytes=prewarm)
+                logger.info("Prewarmed %.1f GiB of heap arena", prewarm / 2**30)
 
     if opts.sssp_batch_size is not None:
         logger.info(
@@ -340,81 +352,85 @@ def main(argv: list[str] | None = None) -> int:
     times: dict[str, tuple[float, float]] = {}
     for algo in requested:
         logger.info("Computing %s", algo)
-        g = graph if algo == "pathtigs" else graph.copy()
-        t0 = time.monotonic()
         if algo == "pathtigs":
-            tigs = compute_pathtigs(g)
-        elif algo == "eulertigs":
-            tigs = compute_eulertigs(g, EulertigConfig(k=k))
-        elif algo == "greedytigs":
-            tigs = compute_greedytigs(
-                g,
-                GreedytigConfig(
-                    k=k,
-                    **_sssp_overrides(opts),
-                    host_threads=opts.threads,
-                    overflow_mode=opts.sssp_overflow_mode,
-                    host_route_threshold=opts.host_route_threshold,
-                    use_mesh={"auto": "auto", "true": True, "false": False}[
-                        opts.use_mesh
-                    ],
-                    device=opts.device,
-                    performance_counters=_want_counters(opts),
-                    host_strategy=_host_strategy(opts),
-                ),
-            )
+            g = graph
         else:
-            tigs = compute_matchtigs(
-                g,
-                MatchtigConfig(
-                    k=k,
-                    **_sssp_overrides(opts),
-                    host_threads=opts.threads,
-                    dense_limit=opts.matching_dense_limit,
-                    matching_file_prefix=opts.matching_file_prefix,
-                    device=opts.device,
-                    performance_counters=_want_counters(opts),
-                    host_strategy=_host_strategy(opts),
-                ),
-            )
-        compute_time = time.monotonic() - t0
+            with span("copy"):
+                g = graph.copy()
+        with span("compute", timed=True) as compute:
+            if algo == "pathtigs":
+                tigs = compute_pathtigs(g)
+            elif algo == "eulertigs":
+                tigs = compute_eulertigs(g, EulertigConfig(k=k))
+            elif algo == "greedytigs":
+                tigs = compute_greedytigs(
+                    g,
+                    GreedytigConfig(
+                        k=k,
+                        **_sssp_overrides(opts),
+                        host_threads=opts.threads,
+                        overflow_mode=opts.sssp_overflow_mode,
+                        host_route_threshold=opts.host_route_threshold,
+                        use_mesh={"auto": "auto", "true": True, "false": False}[
+                            opts.use_mesh
+                        ],
+                        device=opts.device,
+                        performance_counters=_want_counters(opts),
+                        host_strategy=_host_strategy(opts),
+                    ),
+                )
+            else:
+                tigs = compute_matchtigs(
+                    g,
+                    MatchtigConfig(
+                        k=k,
+                        **_sssp_overrides(opts),
+                        host_threads=opts.threads,
+                        dense_limit=opts.matching_dense_limit,
+                        matching_file_prefix=opts.matching_file_prefix,
+                        device=opts.device,
+                        performance_counters=_want_counters(opts),
+                        host_strategy=_host_strategy(opts),
+                    ),
+                )
+            compute.add(tigs=len(tigs))
 
-        t0 = time.monotonic()
-        fa_out = getattr(opts, f"{algo}_fa_out")
-        gfa_out = getattr(opts, f"{algo}_gfa_out")
-        debug_path = (
-            f"{opts.debug_spell_prefix}.{algo}.spell"
-            if opts.debug_spell_prefix
-            else None
-        )
-        if fa_out:
-            logger.info("Writing %s as fasta to %s", algo, fa_out)
-            write_walks_fasta(
-                g, tigs, store, k, fa_out, opts.compression_level,
-                debug_path=debug_path,
+        with span("write", timed=True) as write:
+            fa_out = getattr(opts, f"{algo}_fa_out")
+            gfa_out = getattr(opts, f"{algo}_gfa_out")
+            debug_path = (
+                f"{opts.debug_spell_prefix}.{algo}.spell"
+                if opts.debug_spell_prefix
+                else None
             )
-            debug_path = None  # one debug file per algorithm
-        if gfa_out:
-            logger.info("Writing %s as gfa to %s", algo, gfa_out)
-            write_walks_gfa(
-                g, tigs, store, k, gfa_header, gfa_out, opts.compression_level,
-                debug_path=debug_path,
-            )
-        bv_out = getattr(opts, f"{algo}_duplication_bitvector_out", None)
-        if bv_out:
-            logger.info("Writing %s duplication bitvector to %s", algo, bv_out)
-            write_duplication_bitvector(g, tigs, bv_out, opts.compression_level)
-        if opts.debug_print_walks:
-            for walk in tigs:
-                print(", ".join(str(int(e)) for e in walk))
-        write_time = time.monotonic() - t0
-        times[algo] = (compute_time, write_time)
+            if fa_out:
+                logger.info("Writing %s as fasta to %s", algo, fa_out)
+                write_walks_fasta(
+                    g, tigs, store, k, fa_out, opts.compression_level,
+                    debug_path=debug_path,
+                )
+                debug_path = None  # one debug file per algorithm
+            if gfa_out:
+                logger.info("Writing %s as gfa to %s", algo, gfa_out)
+                write_walks_gfa(
+                    g, tigs, store, k, gfa_header, gfa_out, opts.compression_level,
+                    debug_path=debug_path,
+                )
+            bv_out = getattr(opts, f"{algo}_duplication_bitvector_out", None)
+            if bv_out:
+                logger.info("Writing %s duplication bitvector to %s", algo, bv_out)
+                write_duplication_bitvector(g, tigs, bv_out, opts.compression_level)
+            if opts.debug_print_walks:
+                for walk in tigs:
+                    print(", ".join(str(int(e)) for e in walk))
+        times[algo] = (compute.seconds, write.seconds)
         _log_mem(f"After {algo}")
 
-    for algo, (ct, wt) in times.items():
-        logger.info("Computing %s took %.1fs and writing took %.1fs", algo, ct, wt)
-    _log_mem("Final")
-    logger.info("Done")
+    with span("cli.report"):
+        for algo, (ct, wt) in times.items():
+            logger.info("Computing %s took %.1fs and writing took %.1fs", algo, ct, wt)
+        _log_mem("Final")
+        logger.info("Done")
     return 0
 
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..io.sequence_store import SequenceStore
+from ..utils.tracing import span
 from .bigraph import Bigraph
 
 
@@ -131,68 +132,79 @@ def build_bigraph_from_unitigs(store: SequenceStore, k: int) -> Bigraph:
     the reverse complement; prefix/suffix endpoints of each unitig and of
     its reverse complement define the four endpoint references per unitig.
     """
+    with span("load.build"):
+        return _build_from_unitigs(store, k)
+
+
+def _build_from_unitigs(store: SequenceStore, k: int) -> Bigraph:
     km1 = k - 1
     n_uni = len(store)
     if n_uni == 0:
         return Bigraph(0, np.empty(0, dtype=np.int32))
 
-    offsets = store.offsets
-    lengths = offsets[1:] - offsets[:-1]
-    if np.any(lengths < k):
-        bad = int(np.argmax(lengths < k))
-        raise ValueError(
-            f"Unitig {bad} has length {int(lengths[bad])} < k={k}"
+    with span("load.build.keys") as sp:
+        offsets = store.offsets
+        lengths = offsets[1:] - offsets[:-1]
+        if np.any(lengths < k):
+            bad = int(np.argmax(lengths < k))
+            raise ValueError(
+                f"Unitig {bad} has length {int(lengths[bad])} < k={k}"
+            )
+
+        # Endpoint (k-1)-mer node keys: pref, suff, rc(pref), rc(suff).
+        if km1 <= 31:
+            # keys read straight from the 2-bit arena as bit-sliced words (no
+            # [U, k-1] byte matrices at all); rc keys derived arithmetically.
+            p_pref = store.packed_windows(offsets[:-1], km1)
+            p_suff = store.packed_windows(offsets[1:] - km1, km1)
+            packed = np.concatenate(
+                [p_pref, p_suff, _rc_packed(p_pref, km1), _rc_packed(p_suff, km1)]
+            )
+        else:
+            pref = store.gather_windows(offsets[:-1], km1)  # [U, k-1]
+            suff = store.gather_windows(offsets[1:] - km1, km1)  # [U, k-1]
+            rc_pref = (3 - pref)[:, ::-1]
+            rc_suff = (3 - suff)[:, ::-1]
+            all_kmers = np.concatenate([pref, suff, rc_pref, rc_suff], axis=0)
+            packed = None if km1 <= 62 else _pack_rows(all_kmers)
+        sp.add(keys=4 * n_uni)
+    with span("load.build.nodes") as sp:
+        if packed is None:
+            n_nodes, inverse = _unique_two_words(all_kmers)
+        else:
+            uniq, inverse = unique_with_inverse(packed)
+            n_nodes = len(uniq)
+        inverse = inverse.astype(np.int32, copy=False).reshape(4, n_uni)
+        node_pref, node_suff, node_rc_pref, node_rc_suff = inverse
+        sp.add(nodes=n_nodes)
+
+    with span("load.build.edges") as sp:
+        # mirror(n(x)) = n(rc(x)).  Each oriented kmer x appears in the first
+        # half (pref/suff) or second half (rc) of `all_kmers`; its rc appears
+        # in the opposite half at the same unitig slot.
+        mirror_node = np.full(n_nodes, -1, dtype=np.int32)
+        mirror_node[node_pref] = node_rc_pref
+        mirror_node[node_suff] = node_rc_suff
+        mirror_node[node_rc_pref] = node_pref
+        mirror_node[node_rc_suff] = node_suff
+        assert np.all(mirror_node >= 0)
+
+        g = Bigraph(n_nodes, mirror_node)
+        handles = np.arange(n_uni, dtype=np.int64)
+        weights = (lengths + 1 - k).astype(np.int64)
+        g.add_biedge_pairs(
+            src=node_pref,
+            dst=node_suff,
+            weight=weights,
+            handle=handles,
+            forward=np.ones(n_uni, dtype=bool),
+            dummy_id=np.zeros(n_uni, dtype=np.int64),
         )
+        from ..utils.debug import debug_checks
 
-    # Endpoint (k-1)-mer node keys: pref, suff, rc(pref), rc(suff).
-    if km1 <= 31:
-        # keys read straight from the 2-bit arena as bit-sliced words (no
-        # [U, k-1] byte matrices at all); rc keys derived arithmetically.
-        p_pref = store.packed_windows(offsets[:-1], km1)
-        p_suff = store.packed_windows(offsets[1:] - km1, km1)
-        packed = np.concatenate(
-            [p_pref, p_suff, _rc_packed(p_pref, km1), _rc_packed(p_suff, km1)]
-        )
-    else:
-        pref = store.gather_windows(offsets[:-1], km1)  # [U, k-1]
-        suff = store.gather_windows(offsets[1:] - km1, km1)  # [U, k-1]
-        rc_pref = (3 - pref)[:, ::-1]
-        rc_suff = (3 - suff)[:, ::-1]
-        all_kmers = np.concatenate([pref, suff, rc_pref, rc_suff], axis=0)
-        packed = None if km1 <= 62 else _pack_rows(all_kmers)
-    if packed is None:
-        n_nodes, inverse = _unique_two_words(all_kmers)
-    else:
-        uniq, inverse = unique_with_inverse(packed)
-        n_nodes = len(uniq)
-    inverse = inverse.astype(np.int32, copy=False).reshape(4, n_uni)
-    node_pref, node_suff, node_rc_pref, node_rc_suff = inverse
-
-    # mirror(n(x)) = n(rc(x)).  Each oriented kmer x appears in the first
-    # half (pref/suff) or second half (rc) of `all_kmers`; its rc appears in
-    # the opposite half at the same unitig slot.
-    mirror_node = np.full(n_nodes, -1, dtype=np.int32)
-    mirror_node[node_pref] = node_rc_pref
-    mirror_node[node_suff] = node_rc_suff
-    mirror_node[node_rc_pref] = node_pref
-    mirror_node[node_rc_suff] = node_suff
-    assert np.all(mirror_node >= 0)
-
-    g = Bigraph(n_nodes, mirror_node)
-    handles = np.arange(n_uni, dtype=np.int64)
-    weights = (lengths + 1 - k).astype(np.int64)
-    g.add_biedge_pairs(
-        src=node_pref,
-        dst=node_suff,
-        weight=weights,
-        handle=handles,
-        forward=np.ones(n_uni, dtype=bool),
-        dummy_id=np.zeros(n_uni, dtype=np.int64),
-    )
-    from ..utils.debug import debug_checks
-
-    if debug_checks():  # debug_assert! analog, off in production
-        assert g.verify_node_pairing()
+        if debug_checks():  # debug_assert! analog, off in production
+            assert g.verify_node_pairing()
+        sp.add(edges=g.n_edges)
     return g
 
 
@@ -243,6 +255,11 @@ def build_bigraph_from_links(store: SequenceStore, links, k: int) -> Bigraph:
     per-link python find/union loop cost minutes over the ~15M links of
     a 60M-base BCALM2 file).
     """
+    with span("load.build"):
+        return _build_from_links(store, links, k)
+
+
+def _build_from_links(store: SequenceStore, links, k: int) -> Bigraph:
     from ..io.readers import Links
 
     links = Links.from_rows(links) if not isinstance(links, Links) else links

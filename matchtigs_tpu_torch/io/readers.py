@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import gzip
 import logging
+import os
 import re
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -32,6 +33,7 @@ from pathlib import Path
 import numpy as np
 
 from ..utils import dna
+from ..utils.tracing import span
 from .sequence_store import SequenceStore
 
 logger = logging.getLogger(__name__)
@@ -483,18 +485,23 @@ def load_unitigs(
         raise ValueError(
             "Specify exactly one of gfa_in, fa_in, bcalm_in"
         )
+    if gfa_in is None and k is None:
+        raise ValueError("k is required for fasta/bcalm input")
+    with span("load.read") as sp:
+        header = file_k = None
+        if gfa_in is not None:
+            store, props = read_gfa(gfa_in)
+            links, header, file_k = props.links, props.header, props.k
+        elif bcalm_in is not None:
+            store, links = read_bcalm2(bcalm_in)
+        else:
+            store, links = read_fasta(fa_in, with_headers=False)[0], None
+        if sp:
+            sp.add(records=len(store), bytes=os.path.getsize(given[0]))
     if gfa_in is not None:
-        store, props = read_gfa(gfa_in)
-        file_k = props.k
         if file_k is None and k is None:
             raise ValueError("GFA file does not declare k; pass k explicitly")
         if k is not None and file_k is not None and k != file_k:
             raise ValueError(f"GFA file k={file_k} conflicts with k={k}")
-        return store, int(k if file_k is None else file_k), props.header, props.links
-    if k is None:
-        raise ValueError("k is required for fasta/bcalm input")
-    if bcalm_in is not None:
-        store, links = read_bcalm2(bcalm_in)
-        return store, int(k), None, links
-    store, _ = read_fasta(fa_in, with_headers=False)
-    return store, int(k), None, None
+        return store, int(k if file_k is None else file_k), header, links
+    return store, int(k), None, links

@@ -29,6 +29,7 @@ import numpy as np
 
 from ..graph.bigraph import Bigraph
 from ..utils import dna
+from ..utils.tracing import span
 from .sequence_store import SequenceStore
 
 
@@ -173,7 +174,7 @@ def write_spell_debug(
     forwards = g.forwards()
     weights = g.weights()
     dummies = g.is_dummy()
-    with open(path, "wb") as f:
+    with span("write.debug"), open(path, "wb") as f:
         for i, walk in enumerate(walks):
             walk = np.asarray(walk)
             f.write(b"tig %d\n" % (i + 1))
@@ -219,6 +220,24 @@ def write_spell_debug(
             f.write(b"\n")
 
 
+def _record_bytes(n: int, per_record: int) -> int:
+    """Bytes of ``n`` records numbered from 1, each ``per_record`` bytes
+    besides its number's digits and its sequence."""
+    total, power = per_record * n, 1
+    while power <= n:
+        total += n - power + 1  # one more digit for each number >= power
+        power *= 10
+    return total
+
+
+def _spell(g, walks, store, k) -> tuple[np.ndarray, np.ndarray]:
+    """``spell_walks_flat`` under the ``write.spell`` span."""
+    with span("write.spell") as sp:
+        flat, offsets = spell_walks_flat(g, walks, store, k)
+        sp.add(characters=len(flat))
+    return flat, offsets
+
+
 def write_walks_fasta(
     g: Bigraph,
     walks: Sequence[np.ndarray],
@@ -231,14 +250,16 @@ def write_walks_fasta(
     """Write walks as fasta records ``>1``, ``>2``, ... like the reference
     (upstream src/bin.rs:492); `debug_path` additionally writes
     per-edge spell annotations (bin.rs debug_writer)."""
-    flat, offsets = spell_walks_flat(g, walks, store, k)
-    with _open_out(path, compression_level) as f:
+    flat, offsets = _spell(g, walks, store, k)
+    with span("write.records") as sp, _open_out(path, compression_level) as f:
         prev = 0
         for i, end in enumerate(offsets.tolist()):
             f.write(b">%d\n" % (i + 1))
             f.write(dna.decode_to_ascii(flat[prev:end]))
             f.write(b"\n")
             prev = end
+        if sp:  # counted, not asked of the file: a pipe cannot tell()
+            sp.add(tigs=len(offsets), bytes=_record_bytes(len(offsets), 3) + len(flat))
     if debug_path is not None:
         write_spell_debug(g, walks, store, k, debug_path)
 
@@ -256,16 +277,19 @@ def write_walks_gfa(
     """Write walks as GFA segments with the input header (or ``H KL:Z:k``),
     mirroring upstream src/bin.rs:688-704; `debug_path` additionally
     writes per-edge spell annotations."""
-    flat, offsets = spell_walks_flat(g, walks, store, k)
-    with _open_out(path, compression_level) as f:
-        hdr = header if header is not None else f"H\tKL:Z:{k}"
-        f.write(hdr.encode() + b"\n")
+    flat, offsets = _spell(g, walks, store, k)
+    with span("write.records") as sp, _open_out(path, compression_level) as f:
+        hdr = (header if header is not None else f"H\tKL:Z:{k}").encode() + b"\n"
+        f.write(hdr)
         prev = 0
         for i, end in enumerate(offsets.tolist()):
             f.write(b"S\t%d\t" % (i + 1))
             f.write(dna.decode_to_ascii(flat[prev:end]))
             f.write(b"\n")
             prev = end
+        if sp:
+            sp.add(tigs=len(offsets),
+                   bytes=len(hdr) + _record_bytes(len(offsets), 4) + len(flat))
     if debug_path is not None:
         write_spell_debug(g, walks, store, k, debug_path)
 
@@ -281,7 +305,7 @@ def write_duplication_bitvector(
     (upstream src/implementation/mod.rs:671-702)."""
     weights = g.weights()
     dummies = g.is_dummy()
-    with _open_out(path, compression_level) as f:
+    with span("write.bitvector"), _open_out(path, compression_level) as f:
         for walk in walks:
             walk = np.asarray(walk)
             if len(walk) == 0:

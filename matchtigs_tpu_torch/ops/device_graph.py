@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..graph.bigraph import Bigraph
+from ..utils.tracing import span
 
 MAX_DEGREE = 4
 
@@ -84,13 +85,15 @@ class DeviceGraph:
         key = (str(torch.device(device)), adj_packed)
         buf = self._adj_on.get(key)
         if buf is None:
-            if adj_packed:
-                buf = torch.from_numpy(self.packed_adjacency()).to(device)
-            else:
-                buf = tuple(
-                    torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
-                    for a in (self.nbr, self.nw)
-                )
+            with span("search.upload") as sp:
+                if adj_packed:
+                    buf = torch.from_numpy(self.packed_adjacency()).to(device)
+                else:
+                    buf = tuple(
+                        torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+                        for a in (self.nbr, self.nw)
+                    )
+                sp.add(bytes=sum(t.nbytes for t in (buf if isinstance(buf, tuple) else (buf,))))
             self._adj_on[key] = buf
         return buf
 

@@ -135,22 +135,6 @@ def max_weight_matching_sparse_batch(
     eu = np.ascontiguousarray(eu, dtype=np.int64)
     ev = np.ascontiguousarray(ev, dtype=np.int64)
     ew = np.ascontiguousarray(ew, dtype=np.int64)
-    if os.environ.get("MATCHTIGS_NATIVE_TRACE"):
-        import logging
-
-        ecnt = edge_off[1:] - edge_off[:-1]
-        ncnt = node_off[1:] - node_off[:-1]
-        hist = np.bincount(
-            np.where(ecnt > 0, np.log2(np.maximum(ecnt, 1)).astype(int) + 1, 0)
-        )
-        top = np.argsort(ecnt)[-5:][::-1]
-        logging.getLogger(__name__).info(
-            "matching batch: %d comps; edge-count log2 histogram %s; "
-            "top-5 (ids/edges): %s",
-            n_comps,
-            hist.tolist(),
-            [(int(ncnt[c]), int(ecnt[c])) for c in top.tolist()],
-        )
     mate = np.empty(n_total, dtype=np.int32)
     import logging as _logging
 

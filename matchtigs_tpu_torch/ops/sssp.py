@@ -48,6 +48,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..utils.tracing import span
 from .candidates import Candidates
 from .device_graph import ADJ_W_BITS, ADJ_W_MASK, DeviceGraph
 
@@ -492,13 +493,17 @@ class DispatchedStage:
         self._budget = budget
         self.bytes_fetched = 0  # device -> host bytes of the last fetch
 
+    def _fetch_rows(self):
+        """(rows [S, C] int32, dist [S, C] int32 or None for packed rows),
+        blocking."""
+        rows = self._rows.cpu().numpy()
+        return rows, None if self._dist is None else self._dist.cpu().numpy()
+
     def fetch(self):
         """(rows [S, C] int32, dist [S, C] int32 or None for packed rows,
         overflow [S] bool), blocking."""
-        rows = self._rows.cpu().numpy()
-        dist = None if self._dist is None else self._dist.cpu().numpy()
-        over = self._over.cpu().numpy().astype(bool)
-        return rows, dist, over
+        rows, dist = self._fetch_rows()
+        return rows, dist, self._over.cpu().numpy().astype(bool)
 
     def fetch_candidates(self, dg, sources, in_mask):
         """(Candidates, overflow [S] bool), blocking, in row-major triple
@@ -506,20 +511,28 @@ class DispatchedStage:
         downloads only the valid slots and their row counts; otherwise
         packed rows go through the native extraction and unpacked rows
         through the numpy one."""
-        over = self._over.cpu().numpy().astype(bool)
-        self.bytes_fetched = over.nbytes
-        if self._compacted is not None:
-            vals, counts, total = self._compacted
-            n = int(total.item())
-            self.bytes_fetched += total.element_size()
-            if n <= self._budget:
-                vals = vals[:n].cpu().numpy()
-                counts = counts.cpu().numpy()
-                self.bytes_fetched += vals.nbytes + counts.nbytes
-                return _compact_candidates(dg, vals, counts, sources, in_mask), over
-        rows, dist, _ = self.fetch()
-        self.bytes_fetched += rows.nbytes + (0 if dist is None else dist.nbytes)
-        return extract_candidates(dg, rows, dist, sources, ~over, in_mask), over
+        compact = None
+        with span("search.fetch") as sp:
+            over = self._over.cpu().numpy().astype(bool)
+            self.bytes_fetched = over.nbytes
+            if self._compacted is not None:
+                vals, counts, total = self._compacted
+                n = int(total.item())
+                self.bytes_fetched += total.element_size()
+                if n <= self._budget:
+                    compact = vals[:n].cpu().numpy(), counts.cpu().numpy()
+                    self.bytes_fetched += compact[0].nbytes + compact[1].nbytes
+            if compact is None:
+                rows, dist = self._fetch_rows()
+                self.bytes_fetched += rows.nbytes + (0 if dist is None else dist.nbytes)
+            sp.add(bytes=self.bytes_fetched)
+        with span("search.extract") as sp:
+            if compact is not None:
+                cands = _compact_candidates(dg, *compact, sources, in_mask)
+            else:
+                cands = extract_candidates(dg, rows, dist, sources, ~over, in_mask)
+            sp.add(candidates=len(cands))
+        return cands, over
 
     def kernel_seconds(self) -> float | None:
         """Device time of the launch (CUDA events), after a fetch; None on
