@@ -496,13 +496,16 @@ def compute_greedytigs(
     if config.performance_counters and stats.candidates:
         # the opt-in ball counters need the concatenated columns
         with span("search.ball_sizes"):
-            candidates = Candidates.concat(candidates)
-            stats.log_ball_sizes(candidates, g.n_nodes, out_nodes)
+            candidates = [Candidates.concat(candidates)]
+            stats.log_ball_sizes(candidates[0], g.n_nodes, out_nodes)
     logger.info("Found %d candidate shortest paths", stats.candidates)
 
+    # Acceptance owns the chunk list: it empties it and frees each chunk's
+    # columns and its own sort scratch, so nothing candidate-sized lives on
+    # into balance, Euler and write.
     with span("join.accept", timed=True) as sp:
         accepted = None
-        if mesh is not None and isinstance(candidates, list):
+        if mesh is not None:
             # The acceptance sort runs over the mesh; the multiplicity scan
             # stays on the host.  Ids or distances beyond the packed key's
             # ranges take the host accept.
@@ -511,11 +514,15 @@ def compute_greedytigs(
 
             keys = pack_accept_keys(candidates)
             if keys is not None:
+                candidates.clear()
                 sorted_keys = sharded_accept_key_sort(keys, mesh)
+                del keys
                 accepted = greedy_accept_sorted_keys(g, sorted_keys, mult)
+                del sorted_keys
                 logger.info("Acceptance sort ran over %d mesh shards", mesh.size)
         if accepted is None:
-            accepted = greedy_accept(g, candidates, mult)
+            accepted = greedy_accept(g, candidates, mult, sp)
+        del candidates
         sp.add(accepted=len(accepted))
         sp.lap(logger, "Accepted %d paths as cheap dummy edges in %.2fs",
                len(accepted), ELAPSED)

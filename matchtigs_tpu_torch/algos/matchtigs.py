@@ -1,4 +1,4 @@
-# Copied from matchtigs_tpu/algos/matchtigs.py; MatchtigConfig has no batch_size and names its device, _connected_component_labels comes from graph/build.py, comments keep their reasons and drop the JAX package's host timings, and _collapse_candidates's argsort route breaks ties as its packed route does (F7).
+# Copied from matchtigs_tpu/algos/matchtigs.py; MatchtigConfig has no batch_size and names its device, _connected_component_labels comes from graph/build.py, comments keep their reasons and drop the JAX package's host timings, _collapse_candidates's argsort route breaks ties as its packed route does (F7), and _value_sort is utils/sorting.py:value_sort.
 """Optimal matchtigs: minimum plain-text representation with repetition.
 
 Capability-equivalent of ``MatchtigAlgorithm``
@@ -40,6 +40,7 @@ from ..graph.bigraph import Bigraph
 from ..graph.build import _connected_component_labels
 from ..ops import euler
 from ..ops.matching import unbalanced_nodes
+from ..utils.sorting import value_sort
 from ..utils.tracing import ELAPSED, span
 from .greedytigs import GreedytigConfig, SearchStats, collect_candidates
 
@@ -221,27 +222,6 @@ def _dedup_argsort(g, a, b, wrow, uu, vv, n_ids):
 
 _IDB = 23  # id bits in the packed collapse row (n_ids < 2^23)
 _ID_MASK = (1 << _IDB) - 1
-
-
-def _value_sort(arr: np.ndarray) -> None:
-    """In-place ascending value sort of non-negative int64 keys: native
-    MT radix at scale, np.sort otherwise (identical order)."""
-    if len(arr) >= (1 << 20):
-        try:
-            from .. import native
-
-            lib = native.load()
-        except ImportError:
-            lib = None
-        if lib is not None:
-            import os
-
-            if lib.radix_sort_i64(
-                len(arr), native.as_ll_ptr(arr),
-                min(os.cpu_count() or 1, 16),
-            ) == 0:
-                return
-    arr.sort()
 
 
 def _expand_pack_native(g, u, v, w, ids_start, ids_count, is_canon):
@@ -907,7 +887,7 @@ def _allocate_and_match(
                             ) * np.int64(COUNT_SCALE) + 1
                         else:
                             packed2 = ((lo * np.int64(NB) + hi) << 7) | dist
-                            _value_sort(packed2)
+                            value_sort(packed2)
                             key2 = packed2 >> 7
                             keep2 = np.empty(len(key2), dtype=bool)
                             if len(keep2):

@@ -1,4 +1,4 @@
-# Copied from matchtigs_tpu/ops/candidates.py.
+# Copied from matchtigs_tpu/ops/candidates.py; the class docstring says how the port's greedy_accept consumes the columns.
 """Column-oriented candidate shortest-path sets.
 
 The candidate phase produces tens of millions of (out_node, in_node,
@@ -28,7 +28,7 @@ class Candidates:
     """(u, v, d) candidate columns; u/v node ids, d the path distance.
 
     Columns are freshly-allocated contiguous int64 unless stated
-    otherwise; `greedy_accept` consumes (mutates) them in place.
+    otherwise; `greedy_accept` consumes them (releases them as it packs).
     """
 
     u: np.ndarray

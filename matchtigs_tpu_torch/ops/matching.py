@@ -1,4 +1,4 @@
-# Copied from matchtigs_tpu/ops/matching.py.
+# Copied from matchtigs_tpu/ops/matching.py; greedy_accept owns its chunk list (packs it into one key array, releasing each chunk, sorts with utils/sorting.py:value_sort, scans the packed keys) in place of the native fused and chunked sorts, whose scratch lives as long as the process.
 """Deterministic greedy matching over shortest-path candidates.
 
 Replaces the reference's online greedy matching under fine-grained node
@@ -26,9 +26,12 @@ from __future__ import annotations
 import logging
 
 import numpy as np
+import torch
 
 from ..graph.bigraph import Bigraph
 from ..ops.candidates import Candidates
+from ..utils.sorting import value_sort
+from ..utils.tracing import NOOP
 
 logger = logging.getLogger(__name__)
 
@@ -52,146 +55,129 @@ def unbalanced_nodes(g: Bigraph):
 
 def greedy_accept(
     g: Bigraph,
-    candidates,  # Candidates columns or int64 [M, 3] triples
+    candidates,  # list of Candidates chunks, Candidates, or int64 [M, 3]
     multiplicities: np.ndarray,  # signed imbalance per node (mutated)
+    sp=NOOP,  # span that gets the ``released_bytes`` counter
 ) -> np.ndarray:
     """Accept candidate paths greedily; returns accepted [A, 3] triples.
 
     Candidates are sorted by (dist, out_node, in_node) before the scan, so
     the result is deterministic for a given candidate set.  The scan runs
-    natively (native/tigs.cpp) with this python loop as fallback/oracle.
+    natively (native/tigs.cpp) with the python loop as fallback/oracle.
 
-    A `Candidates` argument is CONSUMED: its columns are freshly allocated
-    by the search phase and the packed-sort path below mutates them in
-    place (sparing a 3-column copy — ~1.2 GB of traffic at 51M rows).
+    The candidates are CONSUMED: a list of chunks is left empty, and a
+    chunk's columns are released as soon as its keys are written.  Within
+    the packed ranges (ids < 2^28, dist < 128) the chunks become one key
+    array (``d << 56 | u << 28 | v``) that dies on return, so acceptance
+    holds at most the columns it was given plus 8 bytes a candidate, and
+    nothing candidate-sized outlives it.  ``sp`` counts the bytes of
+    columns and sort scratch released.
     """
     if isinstance(candidates, list):
-        total = sum(len(c) for c in candidates)
-        if total == 0:
-            return np.empty((0, 3), dtype=np.int64)
-        fused = _native_accept_chunks_fused(g, candidates, multiplicities)
-        if fused is not None:
-            return fused
-        sorted_cols = _native_sort_packed_chunks(g, candidates)
-        if sorted_cols is not None:
-            cu, cv, cd = sorted_cols
-            try:
-                return _greedy_accept_native(g, None, cu, cv, cd,
-                                             multiplicities)
-            except ImportError:  # unreachable: chunks path implies native
-                return greedy_accept_scan_py(
-                    g, np.stack([cu, cv, cd], axis=1), multiplicities
-                )
-        candidates = Candidates.concat(candidates)
-    if len(candidates) == 0:
-        return np.empty((0, 3), dtype=np.int64)
-    if isinstance(candidates, Candidates):
-        cu, cv, cd = candidates.u, candidates.v, candidates.d
+        chunks = candidates
+    elif isinstance(candidates, Candidates):
+        chunks = [candidates]
     else:
-        # Work on contiguous columns: column views of an [M, 3] array are
-        # stride-24 and cost tens of seconds in elementwise ops / gathers
-        # at 50M+ candidates.  Real copies (not views): the packed-sort
-        # path below mutates them in place.
-        cu = candidates[:, 0].astype(np.int64, copy=True)
-        cv = candidates[:, 1].astype(np.int64, copy=True)
-        cd = candidates[:, 2].astype(np.int64, copy=True)
-    if g.n_nodes < (1 << 28) and int(cd.max(initial=0)) < 128:
-        # The packed key holds the whole triple (d:8 | u:28 | v:28), so
-        # sorting key VALUES yields the sorted candidates directly --
-        # unpacking sorted keys is sequential, where sorting an index
-        # permutation costs 3x 0.4GB random gathers (or the equivalent
-        # scan indirection) at 50M candidates.
-        order = None
-        if not _native_sort_packed(cu, cv, cd):
-            # numpy fallback: all pack/unpack steps are in-place into the
-            # three column buffers (fresh tens-of-MB allocations cost
-            # more in first-touch page faults than the arithmetic does;
-            # measured 3.5s -> 0.9s cold at 5.2M rows).
-            key = cd  # cd's buffer becomes the key, then dist again
-            key <<= 56
-            np.left_shift(cu, 28, out=cu)
-            key |= cu
-            key |= cv
-            key.sort()
-            np.bitwise_and(key, np.int64((1 << 28) - 1), out=cv)
-            np.right_shift(key, 28, out=cu)
-            cu &= np.int64((1 << 28) - 1)
-            key >>= 56  # cd = dist again
+        chunks = [Candidates.from_triples(np.array(candidates, dtype=np.int64))]
+    del candidates
+    n = sum(len(c) for c in chunks)
+    released = 0
+    if n == 0:
+        accepted = np.empty((0, 3), dtype=np.int64)
+    elif g.n_nodes < (1 << 28) and max(int(c.d.max(initial=0)) for c in chunks) < 128:
+        keys, released = _pack_owned_chunks(chunks, n)
+        # the radix sort's scratch: one key a candidate
+        released += keys.nbytes * value_sort(keys)
+        try:
+            accepted = _scan_sorted_keys(g, keys, multiplicities)
+        except ImportError:
+            logger.warning("native tigs pass unavailable; using python fallback")
+            accepted = greedy_accept_scan_py(g, _unpack_keys(keys), multiplicities)
+        del keys
     else:
-        order = np.lexsort((cv, cu, cd))
+        accepted = _accept_unpacked(g, chunks, multiplicities)
+    chunks.clear()
+    sp.add(released_bytes=released)
+    return accepted
+
+
+def _accept_unpacked(g: Bigraph, chunks: list, m: np.ndarray) -> np.ndarray:
+    """Ids >= 2^28 or distances >= 128: the concatenated columns in
+    lexsort order, scanned natively (python fallback)."""
+    cat = Candidates.concat(chunks)
+    chunks.clear()
+    cu, cv, cd = (np.ascontiguousarray(c, dtype=np.int64) for c in (cat.u, cat.v, cat.d))
+    del cat
+    order = np.lexsort((cv, cu, cd))
     try:
-        return _greedy_accept_native(g, order, cu, cv, cd, multiplicities)
+        return _greedy_accept_native(g, order, cu, cv, cd, m)
     except ImportError:
         logger.warning("native tigs pass unavailable; using python fallback")
-        if order is not None:
-            cu, cv, cd = cu[order], cv[order], cd[order]
         return greedy_accept_scan_py(
-            g, np.stack([cu, cv, cd], axis=1), multiplicities
+            g, np.stack([cu[order], cv[order], cd[order]], axis=1), m
         )
 
 
-def _native_accept_chunks_fused(g, chunks, m):
-    """Fully fused chunk-concat + pack + MT radix + packed MT acceptance
-    scan (radix.cpp:accept_chunks_scan_packed): only the ACCEPTED triples
-    are ever unpacked.  The full-width (cu, cv, cd) columns this skips
-    moved ~2.4GB at 51M candidates for ~1M accepted rows — the accept
-    phase's dominant traffic.  Returns accepted [A, 3] triples (and
-    mutates `m`), or None when ineligible (same range limits as the
-    packed sort, too small, or no native library)."""
-    import ctypes
-    import os
+def _pack_owned_chunks(chunks: list, n: int) -> tuple[np.ndarray, int]:
+    """Pack the chunks' ``n`` triples into one unsorted key array, largest
+    chunk first, releasing each chunk once its keys are written (a
+    native-wrapped chunk's buffer is freed with its last column); the
+    list is left empty.  Returns the keys and the bytes of columns, and
+    of a key array of its own, that die with them.  The shifts and ors
+    run on torch's CPU threads, in place: ``d`` is shifted, and the key
+    may be the chunk's ``u`` itself."""
+    chunks.sort(key=len)
+    keys = _key_buffer(chunks[-1], n)
+    released = 0 if keys.base is not None else keys.nbytes
+    off = 0
+    while chunks:
+        c = chunks.pop()
+        m = len(c)
+        u, v, d = (
+            torch.from_numpy(np.ascontiguousarray(x, dtype=np.int64))
+            for x in (c.u, c.v, c.d)
+        )
+        released += c.u.nbytes + c.v.nbytes + c.d.nbytes
+        del c
+        key = torch.from_numpy(keys[off : off + m])
+        # ((d << 28 | u) << 28) | v
+        torch.bitwise_or(d.bitwise_left_shift_(28), u, out=key)
+        key.bitwise_left_shift_(28).bitwise_or_(v)
+        del u, v, d, key
+        off += m
+    return keys, released
 
-    total = sum(len(c) for c in chunks)
-    if total < (1 << 22) or g.n_nodes >= (1 << 28):
-        return None
-    if any(int(c.d.max(initial=0)) >= 128 for c in chunks if len(c)):
-        return None
-    try:
-        from .. import native
 
-        lib = native.load()
-    except ImportError:
-        return None
-    live = [c for c in chunks if len(c)]
-    cols = []
-    for name in ("u", "v", "d"):
-        cols.append([
-            np.ascontiguousarray(getattr(c, name), dtype=np.int64)
-            for c in live
-        ])
-    llp = ctypes.POINTER(ctypes.c_longlong)
-    ptrs = [
-        (llp * len(live))(*[native.as_ll_ptr(a) for a in col])
-        for col in cols
-    ]
-    lens = np.array([len(c) for c in live], dtype=np.int64)
-    # Under the mirror invariant (m[mirror[x]] == -m[x]; self-mirror m in
-    # [0, 1]) every accept consumes >= 1 unit of total out-deficit, so the
-    # deficit sum bounds the accept count.  The scan runs on a PRIVATE
-    # copy of m so a -2 (cap overflow, only reachable when the invariant
-    # is violated) cannot leak partial multiplicity updates into the
-    # caller's array before the non-fused fallback reruns the scan.
-    m64 = np.array(m, dtype=np.int64)
-    sm = np.ascontiguousarray(g.self_mirror_mask(), dtype=np.int8)
-    deficit = np.where(sm != 0, np.maximum(m64, 0), np.maximum(-m64, 0))
-    cap = int(deficit.sum()) + 1
-    u_out = np.empty(cap, dtype=np.int64)
-    v_out = np.empty(cap, dtype=np.int64)
-    d_out = np.empty(cap, dtype=np.int64)
-    mirror = np.ascontiguousarray(g.mirror_node, dtype=np.int64)
-    p = native.as_ll_ptr
-    n_acc = lib.accept_chunks_scan_packed(
-        len(live), ptrs[0], ptrs[1], ptrs[2], p(lens),
-        p(m64), p(mirror), native.as_i8_ptr(sm),
-        p(u_out), p(v_out), p(d_out), cap,
-        min(os.cpu_count() or 1, 16), 1 << 19,
-    )
-    if n_acc < 0:
-        return None
-    m[:] = m64
-    return np.stack(
-        [u_out[:n_acc], v_out[:n_acc], d_out[:n_acc]], axis=1
-    )
+def _key_buffer(c: Candidates, n: int) -> np.ndarray:
+    """Room for ``n`` keys: the chunk's own buffer where its columns are
+    consecutive slices of one int64 array with that room (a native triple
+    buffer, ops/sssp.py:_wrap_native_triples: the chunk's keys take its
+    ``u`` slots, the other chunks' its dead ``v`` and ``d`` slots), else a
+    new array.  A new candidate-sized block from the CLI's heap stays
+    resident after it dies (utils/malloc_tuning.py) and lifts the RSS
+    that balance, Euler and write start from."""
+    base, m = c.u.base, len(c)
+    if (
+        isinstance(base, np.ndarray)
+        and base.dtype == np.int64
+        and base.ndim == 1
+        and base.flags.c_contiguous
+        and c.v.base is base
+        and c.d.base is base
+        and all(x.dtype == np.int64 and x.flags.c_contiguous for x in (c.u, c.v, c.d))
+        and c.v.ctypes.data == c.u.ctypes.data + 8 * m
+        and c.d.ctypes.data == c.v.ctypes.data + 8 * m
+    ):
+        start = (c.u.ctypes.data - base.ctypes.data) // 8
+        if start + n <= len(base):
+            return base[start : start + n]
+    return np.empty(n, dtype=np.int64)
+
+
+def _unpack_keys(keys: np.ndarray) -> np.ndarray:
+    """[M, 3] (u, v, d) triples of packed acceptance keys."""
+    mask28 = np.int64((1 << 28) - 1)
+    return np.stack([(keys >> 28) & mask28, keys & mask28, keys >> 56], axis=1)
 
 
 def pack_accept_keys(chunks) -> np.ndarray | None:
@@ -224,18 +210,12 @@ def greedy_accept_sorted_keys(
     g: Bigraph, keys: np.ndarray, m: np.ndarray
 ) -> np.ndarray:
     """Acceptance scan over PRE-SORTED packed keys (``d << 56 | u << 28 |
-    v``): the packed MT scan (native/tigs.cpp:greedy_accept_scan_packed_mt)
-    consumes them directly.  The consumer of the mesh-sharded acceptance
-    sort; identical accepted set as greedy_accept on the unpacked triples
-    (parity-tested).  Mutates ``m``; returns accepted [A, 3] triples."""
-    import ctypes
-    import os
-
+    v``) after a range check of their node ids.  The consumer of the
+    mesh-sharded acceptance sort; identical accepted set as greedy_accept
+    on the unpacked triples (parity-tested).  Mutates ``m``; returns
+    accepted [A, 3] triples."""
     if len(keys) == 0:
         return np.empty((0, 3), dtype=np.int64)
-    from .. import native
-
-    lib = native.load()
     keys = np.ascontiguousarray(keys, dtype=np.uint64)
     mask28 = np.uint64((1 << 28) - 1)
     u_max = int(((keys >> np.uint64(28)) & mask28).max())
@@ -245,22 +225,42 @@ def greedy_accept_sorted_keys(
             f"packed key node id {max(u_max, v_max)} out of range "
             f"(n_nodes={g.n_nodes})"
         )
+    return _scan_sorted_keys(g, keys, m)
+
+
+def _scan_sorted_keys(g: Bigraph, keys: np.ndarray, m: np.ndarray) -> np.ndarray:
+    """The packed MT scan (native/tigs.cpp:greedy_accept_scan_packed_mt)
+    over sorted in-range keys, int64 or uint64: only the accepted triples
+    are unpacked.  It runs on a private copy of ``m``, copied back on
+    success.  Under the mirror invariant (m[mirror[x]] == -m[x];
+    self-mirror m in [0, 1]) every accept consumes >= 1 unit of total
+    out-deficit, which bounds the output; an input that breaks the
+    invariant reruns with room for every candidate."""
+    import ctypes
+    import os
+
+    from .. import native
+
+    lib = native.load()
     m64 = np.array(m, dtype=np.int64)
     sm = np.ascontiguousarray(g.self_mirror_mask(), dtype=np.int8)
     deficit = np.where(sm != 0, np.maximum(m64, 0), np.maximum(-m64, 0))
-    cap = int(deficit.sum()) + 1
-    u_out = np.empty(cap, dtype=np.int64)
-    v_out = np.empty(cap, dtype=np.int64)
-    d_out = np.empty(cap, dtype=np.int64)
     mirror = np.ascontiguousarray(g.mirror_node, dtype=np.int64)
     p = native.as_ll_ptr
-    n_acc = lib.greedy_accept_scan_packed_mt(
-        len(keys),
-        keys.ctypes.data_as(ctypes.POINTER(ctypes.c_ulonglong)),
-        p(m64), p(mirror), native.as_i8_ptr(sm),
-        p(u_out), p(v_out), p(d_out), cap,
-        min(os.cpu_count() or 1, 16), 1 << 19,
-    )
+    for cap in (min(int(deficit.sum()) + 1, len(keys)), len(keys)):
+        m64[:] = m
+        u_out = np.empty(cap, dtype=np.int64)
+        v_out = np.empty(cap, dtype=np.int64)
+        d_out = np.empty(cap, dtype=np.int64)
+        n_acc = lib.greedy_accept_scan_packed_mt(
+            len(keys),
+            keys.ctypes.data_as(ctypes.POINTER(ctypes.c_ulonglong)),
+            p(m64), p(mirror), native.as_i8_ptr(sm),
+            p(u_out), p(v_out), p(d_out), cap,
+            min(os.cpu_count() or 1, 16), 1 << 19,
+        )
+        if n_acc != -2:
+            break
     if n_acc < 0:
         raise RuntimeError(f"packed acceptance scan failed ({n_acc})")
     m[:] = m64
@@ -269,116 +269,29 @@ def greedy_accept_sorted_keys(
     )
 
 
-def _native_sort_packed_chunks(g, chunks):
-    """Fused chunk-concat + pack + MT radix + unpack
-    (radix.cpp:accept_sort_packed_chunks): the separate three-column
-    1.2GB concatenation it replaces was the device-led path's largest
-    remaining page-fault surface at 60M bases.  Returns the sorted
-    (cu, cv, cd) columns, or None when ineligible (ids/dists out of the
-    packed range, too small, or no native library)."""
-    import ctypes
-    import os
-
-    total = sum(len(c) for c in chunks)
-    if total < (1 << 22) or g.n_nodes >= (1 << 28):
-        return None
-    if any(int(c.d.max(initial=0)) >= 128 for c in chunks if len(c)):
-        return None
-    try:
-        from .. import native
-
-        lib = native.load()
-    except ImportError:
-        return None
-    live = [c for c in chunks if len(c)]
-    cols = []
-    for name in ("u", "v", "d"):
-        cols.append([
-            np.ascontiguousarray(getattr(c, name), dtype=np.int64)
-            for c in live
-        ])
-    llp = ctypes.POINTER(ctypes.c_longlong)
-    ptrs = [
-        (llp * len(live))(*[native.as_ll_ptr(a) for a in col])
-        for col in cols
-    ]
-    lens = np.array([len(c) for c in live], dtype=np.int64)
-    cu = np.empty(total, dtype=np.int64)
-    cv = np.empty(total, dtype=np.int64)
-    cd = np.empty(total, dtype=np.int64)
-    p = native.as_ll_ptr
-    rc = lib.accept_sort_packed_chunks(
-        len(live), ptrs[0], ptrs[1], ptrs[2], p(lens),
-        p(cu), p(cv), p(cd), min(os.cpu_count() or 1, 16),
-    )
-    if rc != 0:
-        return None
-    return cu, cv, cd
-
-
-def _native_sort_packed(cu, cv, cd) -> bool:
-    """In-place (d, u, v) value sort of the three candidate columns via
-    the native MT pack + 16-bit LSD radix + unpack
-    (radix.cpp:accept_sort_packed) — one MT pass each way instead of
-    three single-threaded 400MB numpy passes around an AVX np.sort
-    (~1.6s -> ~0.5s at 51M rows).  False when unavailable or too small
-    to pay the thread spawns."""
-    if len(cu) < (1 << 20):
-        return False
-    try:
-        from .. import native
-
-        lib = native.load()
-    except ImportError:
-        return False
-    import os
-
-    p = native.as_ll_ptr
-    return (
-        lib.accept_sort_packed(
-            len(cu), p(cu), p(cv), p(cd), min(os.cpu_count() or 1, 16)
-        )
-        == 0
-    )
-
-
 def _greedy_accept_native(
     g: Bigraph,
-    order: np.ndarray | None,
+    order: np.ndarray,
     cu: np.ndarray,
     cv: np.ndarray,
     cd: np.ndarray,
     m: np.ndarray,
 ) -> np.ndarray:
-    """Scan candidates (in `order` if given, else already sorted);
+    """Scan candidates in ``order`` (native/tigs.cpp:greedy_accept_scan_perm);
     returns accepted [A, 3] rows in original coordinates."""
-    import os
-
     from .. import native
 
     lib = native.load()
-    M = len(cu)
-    if order is not None:
-        order = np.ascontiguousarray(order, dtype=np.int64)
+    order = np.ascontiguousarray(order, dtype=np.int64)
     m64 = np.ascontiguousarray(m, dtype=np.int64)
     mirror = np.ascontiguousarray(g.mirror_node, dtype=np.int64)
     sm = np.ascontiguousarray(g.self_mirror_mask(), dtype=np.int8)
-    accepted = np.empty(M, dtype=np.int64)
+    accepted = np.empty(len(cu), dtype=np.int64)
     p = native.as_ll_ptr
-    if order is None and M >= (1 << 21):
-        # Pre-sorted big scans run the chunked-speculation MT variant
-        # (exact: multiplicity monotonicity makes snapshot rejects
-        # permanent; identical accepted set, parity-tested).
-        n_acc = lib.greedy_accept_scan_mt(
-            M, p(cu), p(cv), p(cd), p(m64), p(mirror),
-            native.as_i8_ptr(sm), p(accepted),
-            min(os.cpu_count() or 1, 16), 1 << 19,
-        )
-    else:
-        n_acc = lib.greedy_accept_scan_perm(
-            M, None if order is None else p(order), p(cu), p(cv), p(cd),
-            p(m64), p(mirror), native.as_i8_ptr(sm), p(accepted),
-        )
+    n_acc = lib.greedy_accept_scan_perm(
+        len(cu), p(order), p(cu), p(cv), p(cd),
+        p(m64), p(mirror), native.as_i8_ptr(sm), p(accepted),
+    )
     m[:] = m64  # propagate multiplicity updates to the caller's array
     sel = accepted[:n_acc]
     return np.stack([cu[sel], cv[sel], cd[sel]], axis=1)

@@ -1,7 +1,8 @@
-# Copied from matchtigs_tpu/utils/sorting.py.
+# Copied from matchtigs_tpu/utils/sorting.py; value_sort is the JAX package's algos/matchtigs.py:_value_sort.
 """Shared sorting primitives backed by the native runtime.
 
-``stable_order`` is the CSR-bucketing step used by the incremental CSR
+``value_sort`` sorts the acceptance keys of greedy matchtigs and the
+numpy fallback's pair keys of optimal matchtigs.  ``stable_order`` is the CSR-bucketing step used by the incremental CSR
 (graph/bigraph.py) and the padded device adjacency (ops/device_graph.py):
 numpy's single-threaded ``argsort(kind="stable")`` over 22.8M int32 edge
 keys cost ~2.1s per full build at the 60M-base scale; the native
@@ -40,3 +41,26 @@ def stable_order(keys: np.ndarray, n_keys: int) -> np.ndarray:
             )
             return order
     return np.argsort(keys, kind="stable").astype(np.int64)
+
+
+def value_sort(keys: np.ndarray) -> bool:
+    """In-place ascending value sort of non-negative int64 keys: the
+    native MT radix sort at scale (native/radix.cpp:radix_sort_i64, its
+    scratch of one key each malloc'd and freed within the call), np.sort
+    otherwise (identical order).  True when the radix sort ran."""
+    if len(keys) >= (1 << 20):
+        try:
+            from .. import native
+
+            lib = native.load()
+        except ImportError:
+            lib = None
+        if lib is not None:
+            import os
+
+            if lib.radix_sort_i64(
+                len(keys), native.as_ll_ptr(keys), min(os.cpu_count() or 1, 16)
+            ) == 0:
+                return True
+    keys.sort()
+    return False
