@@ -2031,6 +2031,7 @@ def celegans_collapse(g, k: int, stage_launches: dict) -> dict:
             launches = dict(sssp.KERNEL_LAUNCHES)
     same_set = np.array_equal(*(candidate_keys(c, g.n_nodes) for c in cands.values()))
     ids_start, ids_count, n_ids, _, _ = mt._matching_node_ids(g, g.imbalances())
+    n_candidates = len(cands["device"])  # the collapse empties the candidates
 
     packed_calls = [0]
     packed = mt._collapse_candidates_packed
@@ -2054,7 +2055,7 @@ def celegans_collapse(g, k: int, stage_launches: dict) -> dict:
                        for a, b in zip(collapsed["device"], collapsed["host"]))
     phase("matchtigs_celegans_collapse", seconds=time.monotonic() - t0, n_ids=n_ids,
           past_packed_id_limit=n_ids >= ARGSORT_IDS, routes=routes,
-          candidates=len(cands["device"]), candidate_s=candidate_s,
+          candidates=n_candidates, candidate_s=candidate_s,
           rows=len(collapsed["device"][0]), collapse_s=collapse_s, launches=launches,
           candidate_sets_equal=bool(same_set), columns_equal=same_columns,
           peak_host_rss_gib=peak_rss_gib())

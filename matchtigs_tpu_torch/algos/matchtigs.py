@@ -1,4 +1,4 @@
-# Copied from matchtigs_tpu/algos/matchtigs.py; MatchtigConfig has no batch_size and names its device, _connected_component_labels comes from graph/build.py, comments keep their reasons and drop the JAX package's host timings, _collapse_candidates's argsort route breaks ties as its packed route does (F7), and _value_sort is utils/sorting.py:value_sort.
+# Copied from matchtigs_tpu/algos/matchtigs.py; MatchtigConfig has no batch_size and names its device, _connected_component_labels comes from graph/build.py, comments keep their reasons and drop the JAX package's host timings, _collapse_candidates's argsort route breaks ties as its packed route does (F7), _value_sort is utils/sorting.py:value_sort, and the collapse and the matching drop the candidate columns, the expanded rows and the bucketing scratch at their last read (counted as released_bytes).
 """Optimal matchtigs: minimum plain-text representation with repetition.
 
 Capability-equivalent of ``MatchtigAlgorithm``
@@ -31,6 +31,7 @@ Capability-equivalent of ``MatchtigAlgorithm``
 from __future__ import annotations
 
 import logging
+import weakref
 from contextlib import contextmanager
 from dataclasses import dataclass
 
@@ -161,40 +162,54 @@ def _collapse_candidates(
     apply step relies on this to skip a re-sort), the same on either
     route and in any candidate order.
 
+    The candidates are CONSUMED: their columns are emptied on entry and
+    die, with any native triple buffer behind them, once the expansion
+    has read them; each route drops its expanded rows as its dedup reads
+    them.  ``collapse.dedup`` counts the bytes of candidate columns and
+    expanded rows freed by its close (``released_bytes``).
+
     Origin: F7, the JAX argsort route's ties broken by candidate order.
     """
     if len(candidates) == 0:
         e = np.empty(0, dtype=np.int64)
         return e, e, e, e, e
-    u = candidates.u
-    v = candidates.v
-    w = candidates.d
-    assert np.all(w >= 1), "zero-weight candidate path"
-    if n_ids < (1 << 23) and int(w.max(initial=0)) < 128:
-        return _collapse_candidates_packed(
-            g, u, v, w, ids_start, ids_count, n_ids
-        )
+    cols = [candidates.u, candidates.v, candidates.d]
+    candidates.u = candidates.v = candidates.d = np.empty(0, dtype=np.int64)
+    owned = _Owned(*cols)
+    assert np.all(cols[2] >= 1), "zero-weight candidate path"
+    if n_ids < (1 << 23) and int(cols[2].max(initial=0)) < 128:
+        return _collapse_candidates_packed(g, cols, ids_start, ids_count, n_ids, owned)
     with span("collapse.expand") as sp:
-        a, b, wrow, uu, vv = _expand_candidate_ids(
-            u, v, w, ids_start, ids_count, extras=(u, v)
+        rows = list(
+            _expand_candidate_ids(*cols, ids_start, ids_count, extras=cols[:2])
         )
-        sp.add(rows=len(a))
+        cols.clear()
+        owned.own(*rows)
+        sp.add(rows=len(rows[0]))
     with span("collapse.dedup") as sp:
-        lo, hi, wr, ur, vr = _dedup_argsort(g, a, b, wrow, uu, vv, n_ids)
-        sp.add(pairs=len(lo))
-    return lo, hi, wr, ur, vr
+        res = _dedup_argsort(g, rows, n_ids)
+        sp.add(pairs=len(res[0]), released_bytes=owned.freed())
+    return res
 
 
-def _dedup_argsort(g, a, b, wrow, uu, vv, n_ids):
+def _dedup_argsort(g, rows, n_ids):
     """The argsort route's dedup: per id pair the row with the minimum
-    ``(w, o, su, sv)``, ascending by pair key."""
+    ``(w, o, su, sv)``, ascending by pair key.  ``rows`` is the
+    expansion's list ``[a, b, wrow, uu, vv]``; it is emptied, and each
+    column and sort temporary is dropped at its last read."""
+    a, b, wrow, uu, vv = rows
+    rows.clear()
     keep = a != b  # same-id self-loops only from mirror biedges
     o = (a < b)[keep]
     lo = np.minimum(a, b)[keep]
     hi = np.maximum(a, b)[keep]
+    del a, b
     wr = wrow[keep]
+    del wrow
     ur = uu[keep]
+    del uu
     vr = vv[keep]
+    del vv, keep
     key = lo * n_ids + hi
     # The same id pair can arise with different weights (unbalanced
     # self-mirror endpoints where d(u->v) != d(v->u)); keep the minimum
@@ -204,20 +219,53 @@ def _dedup_argsort(g, a, b, wrow, uu, vv, n_ids):
     is_canon = np.arange(g.n_nodes, dtype=np.int64) <= g.mirror_node
     tie = wr << 3
     tie |= o.astype(np.int64) << 2
+    del o
     tie |= is_canon[ur].astype(np.int64) << 1
     tie |= is_canon[vr]
+    del is_canon
     wmax = int(wr.max(initial=0))
     if wmax < 128 and n_ids < (1 << 26):
         # single packed key (one argsort) instead of a two-key lexsort;
         # equal keys are equal rows, so the sort need not be stable
-        order = np.argsort((key << 10) | tie)
+        key <<= 10
+        key |= tie
+        del tie
+        order = np.argsort(key)
+        key_s = key[order]
+        del key
+        key_s >>= 10
     else:
         order = np.lexsort((tie, key))
-    key_s = key[order]
+        del tie
+        key_s = key[order]
+        del key
     first = np.ones(len(key_s), dtype=bool)
     first[1:] = key_s[1:] != key_s[:-1]
+    del key_s
     sel = order[first]
+    del order, first
     return lo[sel], hi[sel], wr[sel], ur[sel], vr[sel]
+
+
+class _Owned:
+    """Weak references to the host arrays a phase owns and drops.
+    ``freed()`` is the bytes of their buffers that have died by now, each
+    counted once (a view counts its base array): the ``released_bytes``
+    counter of the phase's span."""
+
+    def __init__(self, *arrays):
+        self._refs: list = []
+        self.own(*arrays)
+
+    def own(self, *arrays) -> None:
+        for x in arrays:
+            while isinstance(x.base, np.ndarray):
+                x = x.base
+            if not any(r() is x for r, _ in self._refs):
+                self._refs.append((weakref.ref(x), x.nbytes))
+
+    def freed(self) -> int:
+        return sum(n for r, n in self._refs if r() is None)
 
 
 _IDB = 23  # id bits in the packed collapse row (n_ids < 2^23)
@@ -345,7 +393,7 @@ def _dedup_unpack_native(packed: np.ndarray):
     return lo, hi, wk, o, su, sv
 
 
-def _collapse_candidates_packed(g, u, v, w, ids_start, ids_count, n_ids):
+def _collapse_candidates_packed(g, cols, ids_start, ids_count, n_ids, owned):
     """Value-sort collapse: each expanded row packs into ONE int64
     ``lo<<33 | hi<<10 | w<<3 | o<<2 | su<<1 | sv`` (56 bits), sorted by
     VALUE — no index permutation, no post-sort gathers, and roughly half
@@ -359,18 +407,20 @@ def _collapse_candidates_packed(g, u, v, w, ids_start, ids_count, n_ids):
     canonical class member.  Dedup keeps the minimum (w, o, su, sv) per
     id pair: the minimum weight, with a deterministic tie-break among
     equal-weight candidate rows (any of which is a real shortest path).
+
+    ``cols`` is the candidates' ``[u, v, w]``, emptied once the rows are
+    packed; the packed rows die with the dedup, and ``owned`` counts both.
     """
     mirror = g.mirror_node.astype(np.int64)
     is_canon = np.arange(g.n_nodes, dtype=np.int64) <= mirror
 
     with span("collapse.expand") as sp:
-        packed = _expand_pack_native(
-            g, u, v, w, ids_start, ids_count, is_canon
-        )
+        packed = _expand_pack_native(g, *cols, ids_start, ids_count, is_canon)
         if packed is None:
             # numpy fallback/oracle path
             a, b, wrow, su, sv = _expand_candidate_ids(
-                u, v, w, ids_start, ids_count, extras=(is_canon[u], is_canon[v])
+                *cols, ids_start, ids_count,
+                extras=(is_canon[cols[0]], is_canon[cols[1]]),
             )
             o = a <= b
             packed = np.empty(len(a), dtype=np.int64)
@@ -381,6 +431,8 @@ def _collapse_candidates_packed(g, u, v, w, ids_start, ids_count, n_ids):
             packed |= su.astype(np.int64) << 1
             packed |= sv.astype(np.int64)
             packed.sort()
+        cols.clear()
+        owned.own(packed)
         sp.add(rows=len(packed))
     # canonical node per id: canonical class reps ascending own the
     # consecutive id ranges (ids_start is a cumsum over them).  Computed
@@ -394,7 +446,8 @@ def _collapse_candidates_packed(g, u, v, w, ids_start, ids_count, n_ids):
         res5 = _dedup_resolve_native(packed, node_of_id, mirror)
         if res5 is None:
             res5 = _dedup_unpack_resolve(packed, node_of_id, mirror)
-        sp.add(pairs=len(res5[0]))
+        del packed
+        sp.add(pairs=len(res5[0]), released_bytes=owned.freed())
     return res5
 
 
@@ -588,6 +641,9 @@ def _allocate_and_match(
 
     if n_ids == 0:
         return np.empty((0, 2), dtype=np.int64)
+    # The bucketing scratch and the bucketed edge rows, each dropped at its
+    # last read; ``match.batch.dedup`` counts the bytes freed by its close.
+    owned = _Owned()
     with span("match.components") as sp:
         if len(ka):
             cc = _connected_component_labels(n_ids, ka, kb)
@@ -614,6 +670,7 @@ def _allocate_and_match(
 
         edge_cc = cc[ka]
         order = stable_order(edge_cc.astype(np.int32, copy=False), n_ids)
+        owned.own(edge_cc, order)
         # Permute (ka, kb, kw) and edge_cc by `order` in one native MT pass
         # (gather_edges_cc_i64): np.stack(...)[order] plus the second
         # fancy-index gather built fresh single-threaded full-length
@@ -648,6 +705,8 @@ def _allocate_and_match(
             else:  # python fallback / oracle
                 edges_sorted = np.stack([ka, kb, kw], axis=1)[order]
                 cc_sorted = edge_cc[order]
+            owned.own(edges_sorted, cc_sorted)
+        del edge_cc, order
         cc_labels, cc_starts = _runs(cc_sorted)
         cc_to_slot = {int(c): i for i, c in enumerate(cc_labels)}
         cc_ends = np.append(cc_starts[1:], len(cc_sorted))
@@ -705,10 +764,10 @@ def _allocate_and_match(
             _time.monotonic() - t_start,
         )
 
-    def solve_uncached(c, deletions):
+    def solve_uncached(c, deletions, edges):
         t0 = _time.monotonic()
         res = component_matching_variants(
-            comp_members(c), comp_edges(c), k, deletions, dense_limit
+            comp_members(c), edges, k, deletions, dense_limit
         )
         el = _time.monotonic() - t0
         if el >= 1.0:
@@ -716,7 +775,7 @@ def _allocate_and_match(
                 "Solved matching component: %d ids, %d edges, "
                 "deletion variants %s, %.1fs",
                 len(comp_members(c)),
-                len(comp_edges(c)),
+                len(edges),
                 list(deletions),
                 el,
             )
@@ -796,6 +855,7 @@ def _allocate_and_match(
             # component, which over many tiny components outweighs
             # solving the giant tangles.
             nonlocal batch_pair_cc, batch_pair_a, batch_pair_b
+            nonlocal cc_sorted, edges_sorted
             from ..ops.perfect_matching import (
                 COUNT_SCALE,
                 max_weight_matching_sparse_batch,
@@ -830,18 +890,21 @@ def _allocate_and_match(
                     # edge slices + profit transform + per-pair max-profit dedup
                     # (same stable tie-break as component_matching_variants)
                     sel_e = slot_dels0[slot_of_label[cc_sorted]]
+                    cc_sorted = None
                     # the common case is EVERY component in the batch (no
                     # deletion variants anywhere): skip the full-length copy
                     es = edges_sorted if bool(sel_e.all()) else edges_sorted[sel_e]
+                    del sel_e
                     if all_m:  # new_pos is the identity: skip one 35M gather each
                         ubp = pos_of_id[es[:, 0]]
                         vbp = pos_of_id[es[:, 1]]
                     else:
                         ubp = new_pos[pos_of_id[es[:, 0]]]
                         vbp = new_pos[pos_of_id[es[:, 1]]]
-                with span("match.batch.dedup"):
+                with span("match.batch.dedup") as dedup:
                     lo = np.minimum(ubp, vbp)
                     hi = np.maximum(ubp, vbp)
+                    del ubp, vbp
                     dist = es[:, 2]
                     if NB < (1 << 28) and int(dist.max(initial=0)) < 128:
                         # Per-pair max-profit dedup: (lo*NB + hi) << 7 | dist
@@ -880,11 +943,12 @@ def _allocate_and_match(
                                     lib2, buf_ptr, cnt
                                 )
                         if native_trip is not None:
-                            lo, hi = native_trip.u, native_trip.v
-                            vals2 = lo  # row count for the log line
-                            profit = (
-                                np.int64(k - 1) - native_trip.d
-                            ) * np.int64(COUNT_SCALE) + 1
+                            # the profit over the triple buffer's distances
+                            lo, hi, profit = native_trip.u, native_trip.v, native_trip.d
+                            del native_trip
+                            np.subtract(np.int64(k - 1), profit, out=profit)
+                            profit *= np.int64(COUNT_SCALE)
+                            profit += 1
                         else:
                             packed2 = ((lo * np.int64(NB) + hi) << 7) | dist
                             value_sort(packed2)
@@ -907,8 +971,13 @@ def _allocate_and_match(
                         keep2 = np.ones(len(order2), dtype=bool)
                         keep2[1:] = key[order2][1:] != key[order2][:-1]
                         sel2 = order2[keep2]
-                        vals2 = sel2  # row count for the log line
                         lo, hi, profit = lo[sel2], hi[sel2], profit[sel2]
+                        del key, order2, keep2, sel2
+                    # the solo components solve on copies of their slices
+                    edges_sorted = None
+                    del es, dist
+                    dedup.add(released_bytes=owned.freed())
+                n_edges = len(lo)
                 with span("match.batch.solve") as sp:
                     assert np.all(profit >= 1)
                     # component slot per surviving edge = slot of its lo position
@@ -919,18 +988,22 @@ def _allocate_and_match(
                     edge_off = np.searchsorted(
                         rank2, np.arange(len(slot_sel) + 1)
                     ).astype(np.int64)
+                    # component-local endpoints, written over the dedup's
+                    # columns: no fresh solve arguments
+                    base = node_off[rank2]
+                    del rank2
+                    lo -= base
+                    hi -= base
+                    del base
                     if sp:
                         sizes = np.diff(edge_off)
                         sp.add(components=len(slot_sel), edges=int(edge_off[-1]),
                                largest_component_edges=int(sizes.max(initial=0)),
                                largest_component_ids=int(counts.max(initial=0)))
                     mate, _ = max_weight_matching_sparse_batch(
-                        node_off,
-                        edge_off,
-                        lo - node_off[rank2],
-                        hi - node_off[rank2],
-                        profit,
+                        node_off, edge_off, lo, hi, profit
                     )
+                    del lo, hi, profit
                 with span("match.batch.pairs"):
                     # vectorized pair extraction (ascending batch position =
                     # ascending member id per component, matching the solo path)
@@ -941,20 +1014,26 @@ def _allocate_and_match(
                     batch_pair_a = batch_members[pos[valid]]
                     batch_pair_b = batch_members[partner[valid]]
                     batch_pair_cc = m_labels[slot_sel[slot_per_pos[valid]]]
-                batch.add(components=len(slot_sel), ids=NB, edges=len(vals2),
+                batch.add(components=len(slot_sel), ids=NB, edges=n_edges,
                           pairs=len(batch_pair_a))
                 batch.lap(
                     logger,
                     "Batch-solved %d matching components (%d ids, %d edges, "
                     "%d pairs) in %.1fs",
-                    len(slot_sel), NB, len(vals2), len(batch_pair_a), ELAPSED,
+                    len(slot_sel), NB, n_edges, len(batch_pair_a), ELAPSED,
                 )
             note_progress(NB)
 
+        # The batch frees edges_sorted after its dedup while the solo
+        # solves run beside it, so they get copies of their slices.
+        solo_edges = {
+            c: comp_edges(c).copy() if have_native else comp_edges(c)
+            for c in solo
+        }
         n_workers = min(os.cpu_count() or 1, max(1, len(solo) + 1))
         with span("match.solve"), ThreadPoolExecutor(max_workers=n_workers) as ex:
             solo_futs = {
-                c: ex.submit(solve_uncached, c, comp_deletions[c])
+                c: ex.submit(solve_uncached, c, comp_deletions[c], solo_edges.pop(c))
                 for c in solo
             }
             if have_native:
