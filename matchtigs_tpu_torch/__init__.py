@@ -9,7 +9,9 @@ devices and processes (``parallel/mesh.py``, with the acceptance sort in
 JAX package, and ``capi.py`` with ``native/capi_embed.c`` is the C ABI.
 The host layers (io, graph, matching, the blossom front end, Euler
 decomposition, the native C++ library) are copies of the JAX package's,
-so this package imports neither ``jax`` nor ``matchtigs_tpu``.
+so this package imports neither ``jax`` nor ``matchtigs_tpu``; they keep
+no python fallbacks, so the port requires the native library, which the
+first pass that needs it builds and loads (``native.load``).
 """
 
 from .graph.bigraph import Bigraph

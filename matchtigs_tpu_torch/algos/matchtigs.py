@@ -1,4 +1,4 @@
-# Copied from matchtigs_tpu/algos/matchtigs.py; MatchtigConfig has no batch_size and names its device, _connected_component_labels comes from graph/build.py, comments keep their reasons and drop the JAX package's host timings, _collapse_candidates's argsort route breaks ties as its packed route does (F7), _value_sort is utils/sorting.py:value_sort, and the collapse and the matching drop the candidate columns, the expanded rows and the bucketing scratch at their last read (counted as released_bytes).
+# Copied from matchtigs_tpu/algos/matchtigs.py; MatchtigConfig has no batch_size and names its device, _connected_component_labels comes from graph/build.py, comments keep their reasons and drop the JAX package's host timings, _collapse_candidates's argsort route breaks ties as its packed route does (F7), the collapse and the matching drop the candidate columns, the expanded rows and the bucketing scratch at their last read (counted as released_bytes); without its python fallbacks: the port requires the native library, so the numpy pair dedup beside pair_dedup_min_dist and its _value_sort are gone.
 """Optimal matchtigs: minimum plain-text representation with repetition.
 
 Capability-equivalent of ``MatchtigAlgorithm``
@@ -41,7 +41,6 @@ from ..graph.bigraph import Bigraph
 from ..graph.build import _connected_component_labels
 from ..ops import euler
 from ..ops.matching import unbalanced_nodes
-from ..utils.sorting import value_sort
 from ..utils.tracing import ELAPSED, span
 from .greedytigs import GreedytigConfig, SearchStats, collect_candidates
 
@@ -275,18 +274,14 @@ _ID_MASK = (1 << _IDB) - 1
 def _expand_pack_native(g, u, v, w, ids_start, ids_count, is_canon):
     """Fused MT expansion + row packing + MT radix sort
     (extract.cpp:collapse_expand_pack + radix.cpp:radix_sort_i64):
-    returns the SORTED packed rows, or None when the native library is
-    unavailable (callers fall back to the numpy expansion).  Avoids the
-    full-length expansion temporaries: the collapse's cold cost is
-    first-touch fault exposure, not arithmetic."""
+    returns the SORTED packed rows.  Avoids the full-length expansion
+    temporaries: the collapse's cold cost is first-touch fault exposure,
+    not arithmetic."""
     import os
 
-    try:
-        from .. import native
+    from .. import native
 
-        lib = native.load()
-    except ImportError:
-        return None
+    lib = native.load()
     p = native.as_ll_ptr
     u64 = np.ascontiguousarray(u, dtype=np.int64)
     v64 = np.ascontiguousarray(v, dtype=np.int64)
@@ -316,18 +311,14 @@ def _dedup_resolve_native(packed, node_of_id, mirror):
     """Fused dedup + unpack + id->node resolution of the SORTED packed
     collapse rows (extract.cpp:collapse_dedup_resolve): emits
     (lo, hi, w, ur, vr) directly, skipping the numpy gather/where
-    epilogue.  None when native is unavailable or below
-    the thread-spawn payoff."""
+    epilogue.  None below the thread-spawn payoff (numpy path)."""
     import os
 
-    try:
-        from .. import native
+    from .. import native
 
-        lib = native.load()
-    except ImportError:
-        return None
     if len(packed) < (1 << 18):
         return None
+    lib = native.load()
     p = native.as_ll_ptr
     nt = min(os.cpu_count() or 1, 16)
     node_of_id = np.ascontiguousarray(node_of_id, dtype=np.int64)
@@ -357,17 +348,14 @@ def _dedup_unpack_native(packed: np.ndarray):
     """First-per-key dedup + self-pair drop + column unpack of the SORTED
     packed collapse rows in one MT pass (extract.cpp:collapse_dedup_unpack)
     — replaces six numpy passes and their full-length temporaries.  None
-    when the native library is unavailable."""
+    below the thread-spawn payoff (numpy path)."""
     import os
 
-    try:
-        from .. import native
+    from .. import native
 
-        lib = native.load()
-    except ImportError:
-        return None
     if len(packed) < (1 << 18):
-        return None  # below the thread-spawn payoff; numpy path
+        return None
+    lib = native.load()
     p = native.as_ll_ptr
     nt = min(os.cpu_count() or 1, 16)
     n_keep = int(
@@ -417,7 +405,8 @@ def _collapse_candidates_packed(g, cols, ids_start, ids_count, n_ids, owned):
     with span("collapse.expand") as sp:
         packed = _expand_pack_native(g, *cols, ids_start, ids_count, is_canon)
         if packed is None:
-            # numpy fallback/oracle path
+            # the numpy expansion: the same sorted rows (the tests select
+            # it in place of the native pass and hold it to the JAX package)
             a, b, wrow, su, sv = _expand_candidate_ids(
                 *cols, ids_start, ids_count,
                 extras=(is_canon[cols[0]], is_canon[cols[1]]),
@@ -438,8 +427,8 @@ def _collapse_candidates_packed(g, cols, ids_start, ids_count, n_ids, owned):
     # consecutive id ranges (ids_start is a cumsum over them).  Computed
     # before dedup so the fused native pass can resolve (ur, vr) during
     # emission — the numpy epilogue below (node_of_id/mirror gathers +
-    # wheres over every survivor, full-length temporaries) then never
-    # runs; it stays as the fallback oracle.
+    # wheres over every survivor, full-length temporaries) runs only
+    # below the native pass's thread-spawn payoff.
     with span("collapse.dedup") as sp:
         canon_nodes = np.flatnonzero((ids_count > 0) & is_canon)
         node_of_id = np.repeat(canon_nodes, ids_count[canon_nodes])
@@ -452,12 +441,12 @@ def _collapse_candidates_packed(g, cols, ids_start, ids_count, n_ids, owned):
 
 
 def _dedup_unpack_resolve(packed, node_of_id, mirror):
-    """The fused native dedup's fallback: dedup and unpack (native, else
-    numpy), then the numpy gathers resolving each pair's nodes."""
+    """Below the fused native dedup's payoff: dedup and unpack (native,
+    else numpy), then the numpy gathers resolving each pair's nodes."""
     res = _dedup_unpack_native(packed)
     if res is not None:
         lo, hi, wk, o, su, sv = res
-    else:  # numpy fallback/oracle
+    else:  # below the thread-spawn payoff
         key = packed >> 10
         first = np.empty(len(key), dtype=bool)
         if len(first):
@@ -678,33 +667,23 @@ def _allocate_and_match(
         edges_sorted = None
         cc_sorted = np.empty(0, dtype=np.int64)
         if len(ka):
-            try:
-                from .. import native as _natg
+            import os as _osg
 
-                _libg = _natg.load()
-            except ImportError:
-                _libg = None
-            if _libg is not None:
-                import os as _osg
+            from .. import native as _natg
 
-                n_e = len(ka)
-                edges_sorted = np.empty((n_e, 3), dtype=np.int64)
-                cc_sorted = np.empty(n_e, dtype=np.int64)
-                _libg.gather_edges_cc_i64(
-                    n_e, _natg.as_ll_ptr(order),
-                    _natg.as_ll_ptr(np.ascontiguousarray(ka, dtype=np.int64)),
-                    _natg.as_ll_ptr(np.ascontiguousarray(kb, dtype=np.int64)),
-                    _natg.as_ll_ptr(np.ascontiguousarray(kw, dtype=np.int64)),
-                    _natg.as_ll_ptr(
-                        np.ascontiguousarray(edge_cc, dtype=np.int64)
-                    ),
-                    _natg.as_ll_ptr(edges_sorted),
-                    _natg.as_ll_ptr(cc_sorted),
-                    min(_osg.cpu_count() or 1, 16),
-                )
-            else:  # python fallback / oracle
-                edges_sorted = np.stack([ka, kb, kw], axis=1)[order]
-                cc_sorted = edge_cc[order]
+            n_e = len(ka)
+            edges_sorted = np.empty((n_e, 3), dtype=np.int64)
+            cc_sorted = np.empty(n_e, dtype=np.int64)
+            _natg.load().gather_edges_cc_i64(
+                n_e, _natg.as_ll_ptr(order),
+                _natg.as_ll_ptr(np.ascontiguousarray(ka, dtype=np.int64)),
+                _natg.as_ll_ptr(np.ascontiguousarray(kb, dtype=np.int64)),
+                _natg.as_ll_ptr(np.ascontiguousarray(kw, dtype=np.int64)),
+                _natg.as_ll_ptr(np.ascontiguousarray(edge_cc, dtype=np.int64)),
+                _natg.as_ll_ptr(edges_sorted),
+                _natg.as_ll_ptr(cc_sorted),
+                min(_osg.cpu_count() or 1, 16),
+            )
             owned.own(edges_sorted, cc_sorted)
         del edge_cc, order
         cc_labels, cc_starts = _runs(cc_sorted)
@@ -729,7 +708,6 @@ def _allocate_and_match(
             i = cc_to_slot[int(c)]
             return edges_sorted[cc_starts[i] : cc_ends[i]]
 
-        matched_pairs: list[tuple[int, int]] = []
         # Bucket matching ids by input component once (sorted slices) instead
         # of a full boolean scan per component.
         wcc_order = stable_order(
@@ -824,18 +802,6 @@ def _allocate_and_match(
         batch_pair_cc = np.empty(0, dtype=np.int64)
         batch_pair_a = np.empty(0, dtype=np.int64)
         batch_pair_b = np.empty(0, dtype=np.int64)
-        try:
-            from .. import native
-
-            native.load()
-            have_native = True
-        except ImportError:
-            have_native = False
-        if not have_native:
-            # python fallback (no C++ toolchain): every component solves on
-            # the per-component path below
-            for si in range(len(m_labels)):
-                comp_deletions.setdefault(int(m_labels[si]), (0,))
     if len(m_labels):
         import os
         from concurrent.futures import ThreadPoolExecutor
@@ -912,58 +878,36 @@ def _allocate_and_match(
                         # lexsort((-profit, key)) below.  The native pass
                         # (pair_dedup_min_dist) does MT pack + MT 64-bit LSD
                         # radix + MT boundary dedup + survivor unpack in one
-                        # call with zero numpy temporaries — the numpy version
-                        # below (kept as the fallback and parity oracle) pays
-                        # six fresh full-length temporaries whose first-touch
-                        # faults dominate.
-                        native_trip = None
-                        if have_native:
-                            import ctypes as _ct
+                        # call with zero numpy temporaries.
+                        import ctypes as _ct
 
-                            from .. import native as _nat
-                            from ..ops.sssp import _wrap_native_triples
+                        from .. import native as _nat
+                        from ..ops.sssp import _wrap_native_triples
 
-                            lib2 = _nat.load()
-                            buf_ptr = _ct.POINTER(_ct.c_longlong)()
-                            d_ptr = _ct.cast(
-                                es.ctypes.data + 2 * es.strides[1],
-                                _ct.POINTER(_ct.c_longlong),
+                        lib2 = _nat.load()
+                        buf_ptr = _ct.POINTER(_ct.c_longlong)()
+                        d_ptr = _ct.cast(
+                            es.ctypes.data + 2 * es.strides[1],
+                            _ct.POINTER(_ct.c_longlong),
+                        )
+                        cnt = int(
+                            lib2.pair_dedup_min_dist(
+                                len(lo), _nat.as_ll_ptr(lo),
+                                _nat.as_ll_ptr(hi), d_ptr,
+                                es.strides[0] // 8, NB,
+                                min(os.cpu_count() or 1, 16),
+                                _ct.byref(buf_ptr),
                             )
-                            cnt = int(
-                                lib2.pair_dedup_min_dist(
-                                    len(lo), _nat.as_ll_ptr(lo),
-                                    _nat.as_ll_ptr(hi), d_ptr,
-                                    es.strides[0] // 8, NB,
-                                    min(os.cpu_count() or 1, 16),
-                                    _ct.byref(buf_ptr),
-                                )
-                            )
-                            if cnt >= 0:
-                                native_trip = _wrap_native_triples(
-                                    lib2, buf_ptr, cnt
-                                )
-                        if native_trip is not None:
-                            # the profit over the triple buffer's distances
-                            lo, hi, profit = native_trip.u, native_trip.v, native_trip.d
-                            del native_trip
-                            np.subtract(np.int64(k - 1), profit, out=profit)
-                            profit *= np.int64(COUNT_SCALE)
-                            profit += 1
-                        else:
-                            packed2 = ((lo * np.int64(NB) + hi) << 7) | dist
-                            value_sort(packed2)
-                            key2 = packed2 >> 7
-                            keep2 = np.empty(len(key2), dtype=bool)
-                            if len(keep2):
-                                keep2[0] = True
-                                np.not_equal(key2[1:], key2[:-1], out=keep2[1:])
-                            vals2 = packed2[keep2]
-                            key2 = vals2 >> 7
-                            lo = key2 // np.int64(NB)
-                            hi = key2 - lo * np.int64(NB)
-                            profit = (np.int64(k - 1) - (vals2 & 127)) * np.int64(
-                                COUNT_SCALE
-                            ) + 1
+                        )
+                        if cnt < 0:
+                            raise MemoryError("pair_dedup_min_dist allocation failed")
+                        native_trip = _wrap_native_triples(lib2, buf_ptr, cnt)
+                        # the profit over the triple buffer's distances
+                        lo, hi, profit = native_trip.u, native_trip.v, native_trip.d
+                        del native_trip
+                        np.subtract(np.int64(k - 1), profit, out=profit)
+                        profit *= np.int64(COUNT_SCALE)
+                        profit += 1
                     else:  # k > 127 or giant batches: index-permutation path
                         profit = (np.int64(k - 1) - dist) * np.int64(COUNT_SCALE) + 1
                         key = lo * np.int64(NB) + hi
@@ -1026,20 +970,16 @@ def _allocate_and_match(
 
         # The batch frees edges_sorted after its dedup while the solo
         # solves run beside it, so they get copies of their slices.
-        solo_edges = {
-            c: comp_edges(c).copy() if have_native else comp_edges(c)
-            for c in solo
-        }
+        solo_edges = {c: comp_edges(c).copy() for c in solo}
         n_workers = min(os.cpu_count() or 1, max(1, len(solo) + 1))
         with span("match.solve"), ThreadPoolExecutor(max_workers=n_workers) as ex:
             solo_futs = {
                 c: ex.submit(solve_uncached, c, comp_deletions[c], solo_edges.pop(c))
                 for c in solo
             }
-            if have_native:
-                # the native call releases the GIL; solo variant solves
-                # overlap on the pool threads
-                run_batch()
+            # the native call releases the GIL; solo variant solves
+            # overlap on the pool threads
+            run_batch()
             with span("match.solo") as sp:
                 for c, fut in solo_futs.items():
                     solved[c] = fut.result()
@@ -1105,36 +1045,19 @@ def _allocate_and_match(
             ea = eb = np.empty(0, dtype=np.int64)
             ew_sorted = np.empty(0, dtype=np.int64)
         needy = np.flatnonzero(need_per_wcc > 0)
-        if have_native:
-            needy_with_comps = needy[
-                np.isin(needy, comp_wcc_slot, assume_unique=False)
-            ]
-            segments: list[np.ndarray] = []
-            prev = 0
-            for wslot in needy_with_comps.tolist():
-                cut = int(np.searchsorted(ew_sorted, wslot))
-                segments.append(np.stack([ea[prev:cut], eb[prev:cut]], axis=1))
-                kn = knapsack_wcc(wslot)
-                segments.append(
-                    np.asarray(kn, dtype=np.int64).reshape(-1, 2)
-                )
-                prev = cut
-            segments.append(np.stack([ea[prev:], eb[prev:]], axis=1))
-            return (
-                np.concatenate(segments)
-                if len(segments) > 1
-                else segments[0]
-            )
-
-        # python fallback (no native toolchain): per-WCC loop over `solved`
-        for wi in range(n_w):
-            if need_per_wcc[wi] > 0:
-                matched_pairs.extend(knapsack_wcc(wi))
-                continue
-            comp_ids = m_labels[np.flatnonzero(comp_wcc_slot == wi)]
-            for c in comp_ids:
-                matched_pairs.extend(solve(c, (0,))[0][1])
-        return np.asarray(matched_pairs, dtype=np.int64).reshape(-1, 2)
+        needy_with_comps = needy[
+            np.isin(needy, comp_wcc_slot, assume_unique=False)
+        ]
+        segments: list[np.ndarray] = []
+        prev = 0
+        for wslot in needy_with_comps.tolist():
+            cut = int(np.searchsorted(ew_sorted, wslot))
+            segments.append(np.stack([ea[prev:cut], eb[prev:cut]], axis=1))
+            kn = knapsack_wcc(wslot)
+            segments.append(np.asarray(kn, dtype=np.int64).reshape(-1, 2))
+            prev = cut
+        segments.append(np.stack([ea[prev:], eb[prev:]], axis=1))
+        return np.concatenate(segments) if len(segments) > 1 else segments[0]
 
 
 def _bidirected_components(g: Bigraph) -> np.ndarray:

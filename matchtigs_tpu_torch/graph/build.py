@@ -1,4 +1,4 @@
-# Copied from matchtigs_tpu/graph/build.py, plus _connected_component_labels from algos/matchtigs.py; (k-1)-mers of 32-62 bases are deduplicated as two uint64 words (_unique_two_words: the same order, so the same node ids).
+# Copied from matchtigs_tpu/graph/build.py, plus _connected_component_labels from algos/matchtigs.py; (k-1)-mers of 32-62 bases are deduplicated as two uint64 words (_unique_two_words: the same order, so the same node ids); without its python fallbacks: the port requires the native library.
 """Build the bidirected de Bruijn node graph from unitig sequences.
 
 Capability-equivalent of ``genome-graph``'s edge-centric readers
@@ -95,32 +95,25 @@ def unique_with_inverse(packed: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     inverse).  Structured (two-word) keys and small inputs use numpy.
     """
     if packed.dtype == np.uint64 and len(packed) >= (1 << 16):
-        try:
-            from .. import native
+        import ctypes
+        import os
 
-            lib = native.load()
-        except ImportError:
-            lib = None
-        if lib is not None:
-            import ctypes
-            import os
+        from .. import native
 
-            n = len(packed)
-            packed = np.ascontiguousarray(packed)
-            uniq = np.empty(n, dtype=np.uint64)
-            inverse = np.empty(n, dtype=np.int32)
-            n_uniq = int(
-                lib.unique_u64_inverse(
-                    n,
-                    native.as_u64_ptr(packed),
-                    native.as_u64_ptr(uniq),
-                    inverse.ctypes.data_as(
-                        ctypes.POINTER(ctypes.c_int32)
-                    ),
-                    min(os.cpu_count() or 1, 16),
-                )
+        n = len(packed)
+        packed = np.ascontiguousarray(packed)
+        uniq = np.empty(n, dtype=np.uint64)
+        inverse = np.empty(n, dtype=np.int32)
+        n_uniq = int(
+            native.load().unique_u64_inverse(
+                n,
+                native.as_u64_ptr(packed),
+                native.as_u64_ptr(uniq),
+                inverse.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                min(os.cpu_count() or 1, 16),
             )
-            return uniq[:n_uniq], inverse
+        )
+        return uniq[:n_uniq], inverse
     uniq, inverse = np.unique(packed, return_inverse=True)
     return uniq, inverse
 
@@ -212,20 +205,11 @@ def _connected_component_labels(n: int, rows, cols) -> np.ndarray:
     """Undirected connected-component labels (0..n_comps-1, ascending by
     the component's minimum node id — scipy's labeling).  Native
     union-find (graphwalk.cpp:wcc_labels; ~0.5s vs scipy's ~7s over 19M
-    edges at 60M-base scale), scipy fallback."""
-    try:
-        from .. import native
+    edges at 60M-base scale); the tests hold it against the JAX
+    package's graph build."""
+    from .. import native
 
-        lib = native.load()
-    except ImportError:
-        from scipy.sparse import coo_matrix
-        from scipy.sparse.csgraph import connected_components
-
-        adj = coo_matrix(
-            (np.ones(len(rows), np.int8), (rows, cols)), shape=(n, n)
-        )
-        _, labels = connected_components(adj, directed=False)
-        return labels
+    lib = native.load()
     rows = np.ascontiguousarray(rows, dtype=np.int32)
     cols = np.ascontiguousarray(cols, dtype=np.int32)
     labels = np.empty(n, dtype=np.int32)

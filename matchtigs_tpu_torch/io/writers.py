@@ -1,4 +1,4 @@
-# Copied from matchtigs_tpu/io/writers.py.
+# Copied from matchtigs_tpu/io/writers.py; without its python fallbacks: the port requires the native library.
 """Tig materialization: spell edge walks into sequences and write outputs.
 
 Capability-equivalent of the reference's walk writers
@@ -82,20 +82,15 @@ def spell_walks_flat(
 ) -> tuple[np.ndarray, np.ndarray]:
     """Spell many walks at once: (flat codes, per-walk end offsets).
 
-    Uses the native speller (native/tigs.cpp) when available, else the
-    per-walk python speller."""
+    The native multithreaded speller (native/tigs.cpp); the tests hold
+    it against the JAX package's writers and the per-walk
+    :func:`spell_walk`."""
     if not len(walks):
         return np.empty(0, np.uint8), np.empty(0, np.int64)
-    try:
-        from .. import native
-
-        lib = native.load()
-    except ImportError:
-        parts = [spell_walk(g, w, store, k) for w in walks]
-        offsets = np.cumsum([len(p) for p in parts]).astype(np.int64)
-        return np.concatenate(parts), offsets
-
+    from .. import native
     from ..ops.walks import Walks
+
+    lib = native.load()
 
     wk = Walks.from_list(walks)  # no-op when walks is already flat
     flat = np.ascontiguousarray(wk.flat, dtype=np.int64)

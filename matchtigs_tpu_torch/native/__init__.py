@@ -1,11 +1,13 @@
-# Copied from matchtigs_tpu/native/__init__.py; adds build_capi, the build of the port's C ABI.
+# Copied from matchtigs_tpu/native/__init__.py; adds build_capi, the build of the port's C ABI, and declares only the functions the port calls.
 """Native (C++) runtime components, loaded via ctypes.
 
 The reference offloads min-cost perfect matching to an external C++ binary
 (blossom5) over file IPC; here the native solver is part of the framework:
 ``native/blossom.cpp`` is compiled once into ``_native.so`` and called
 in-process.  The build is a plain g++ invocation cached next to the
-package (no toolchain at runtime -> ImportError with a clear message).
+package.  The port requires it: every host pass that needs the library
+calls :func:`load` on first use, which raises ImportError with the
+compiler's message where no toolchain can build it.
 """
 
 from __future__ import annotations
@@ -135,14 +137,6 @@ def load() -> ctypes.CDLL:
     lib.euler_decompose.restype = ll
     lib.euler_decompose.argtypes = [ll, ll] + [llp] * 7
     i32p = ctypes.POINTER(ctypes.c_int32)
-    lib.euler_decompose_pairing.restype = ll
-    lib.euler_decompose_pairing.argtypes = [
-        ll, ll, i32p, i32p, llp, i32p, ll, llp, llp,
-    ]
-    lib.euler_decompose_splice.restype = ll
-    lib.euler_decompose_splice.argtypes = [
-        ll, ll, i32p, i32p, llp, i32p, ll, llp, llp,
-    ]
     lib.euler_decompose_parsplice.restype = ll
     lib.euler_decompose_parsplice.argtypes = [
         ll, ll, i32p, i32p, llp, i32p, ll, llp, llp,
@@ -154,10 +148,6 @@ def load() -> ctypes.CDLL:
     i8p_ = ctypes.POINTER(ctypes.c_byte)
     lib.wcc_labels.restype = ll
     lib.wcc_labels.argtypes = [ll, ll, i32p, i32p, i32p]
-    lib.break_cycles_flat.restype = ll
-    lib.break_cycles_flat.argtypes = [
-        ll, llp, llp, llp, i8p_, ll, llp, llp,
-    ]
     lib.break_cycles_flat_cyc.restype = ll
     lib.break_cycles_flat_cyc.argtypes = [
         ll, llp, llp, llp, i8p_, ll, llp, llp, llp,
@@ -176,32 +166,16 @@ def load() -> ctypes.CDLL:
     lib.greedy_accept_scan_perm.argtypes = [
         ll, llp, llp, llp, llp, llp, llp, i8p, llp,
     ]
-    lib.greedy_accept_scan_mt.restype = ll
-    lib.greedy_accept_scan_mt.argtypes = [
-        ll, llp, llp, llp, llp, llp, i8p, llp, ll, ll,
-    ]
     lib.fill_padded_adj.restype = ll
     lib.fill_padded_adj.argtypes = [
         ll, ll, i32p, i32p, llp, ll, ll, ll, i32p, i32p,
     ]
-    lib.accept_sort_packed.restype = ll
-    lib.accept_sort_packed.argtypes = [ll, llp, llp, llp, ll]
     lib.radix_sort_i64.restype = ll
     lib.radix_sort_i64.argtypes = [ll, llp, ll]
-    llpp_ = ctypes.POINTER(llp)
-    lib.accept_sort_packed_chunks.restype = ll
-    lib.accept_sort_packed_chunks.argtypes = [
-        ll, llpp_, llpp_, llpp_, llp, llp, llp, llp, ll,
-    ]
     u64p = ctypes.POINTER(ctypes.c_ulonglong)
     lib.greedy_accept_scan_packed_mt.restype = ll
     lib.greedy_accept_scan_packed_mt.argtypes = [
         ll, u64p, llp, llp, i8p, llp, llp, llp, ll, ll, ll,
-    ]
-    lib.accept_chunks_scan_packed.restype = ll
-    lib.accept_chunks_scan_packed.argtypes = [
-        ll, llpp_, llpp_, llpp_, llp, llp, llp, i8p,
-        llp, llp, llp, ll, ll, ll,
     ]
     lib.collapse_expand_count.restype = ll
     lib.collapse_expand_count.argtypes = [ll, llp, llp, llp, ll]
@@ -216,23 +190,11 @@ def load() -> ctypes.CDLL:
         ll, llp, llp, llp, llp, llp,
         ctypes.POINTER(ctypes.c_byte), ll, ll, llp,
     ]
-    lib.spell_walks_packed.restype = ll
-    lib.spell_walks_packed.argtypes = [
-        llp, llp, ll, llp, llp, i8p, i8p, u8p, llp, ll, u8p, llp,
-    ]
     lib.spell_walks_packed_mt.restype = ll
     lib.spell_walks_packed_mt.argtypes = [
         llp, llp, ll, llp, llp, i8p, i8p, u8p, llp, ll, u8p, llp, llp, ll,
     ]
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.bounded_dijkstra_candidates.restype = ll
-    lib.bounded_dijkstra_candidates.argtypes = [
-        ll, ll, ip, ip, ll, llp, ll, i8p, ll, llp, llp, llp,
-    ]
-    lib.bounded_dijkstra_candidates_mt.restype = ll
-    lib.bounded_dijkstra_candidates_mt.argtypes = [
-        ll, ll, ip, ip, ll, llp, ll, i8p, ll, llp, llp, llp, ll, llp,
-    ]
     llpp = ctypes.POINTER(llp)
     lib.bounded_dijkstra_candidates_auto.restype = ll
     lib.bounded_dijkstra_candidates_auto.argtypes = [

@@ -1,4 +1,4 @@
-# Copied from matchtigs_tpu/ops/candidates.py; the class docstring says how the port's greedy_accept consumes the columns.
+# Copied from matchtigs_tpu/ops/candidates.py; the class docstring says how the port's greedy_accept consumes the columns; without its python fallbacks: the port requires the native library.
 """Column-oriented candidate shortest-path sets.
 
 The candidate phase produces tens of millions of (out_node, in_node,
@@ -76,26 +76,18 @@ class Candidates:
         total = sum(len(c) for c in chunks)
         copy = None
         if total >= (1 << 22):
-            try:
-                from .. import native
+            import ctypes
+            import os
 
-                lib = native.load()
-            except ImportError:
-                lib = None
-            if lib is not None:
-                import ctypes
-                import os
+            from .. import native
 
-                nt = min(os.cpu_count() or 1, 16)
-                llp = ctypes.POINTER(ctypes.c_longlong)
+            lib = native.load()
+            nt = min(os.cpu_count() or 1, 16)
+            llp = ctypes.POINTER(ctypes.c_longlong)
 
-                def copy(dst, off, src):
-                    dst_p = ctypes.cast(
-                        dst.ctypes.data + 8 * off, llp
-                    )
-                    lib.copy_i64_populated(
-                        dst_p, native.as_ll_ptr(src), len(src), nt
-                    )
+            def copy(dst, off, src):
+                dst_p = ctypes.cast(dst.ctypes.data + 8 * off, llp)
+                lib.copy_i64_populated(dst_p, native.as_ll_ptr(src), len(src), nt)
 
         u = np.empty(total, dtype=np.int64)
         v = np.empty(total, dtype=np.int64)

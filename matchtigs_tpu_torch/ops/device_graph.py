@@ -1,4 +1,4 @@
-# Copied from matchtigs_tpu/ops/device_graph.py; device_buffers returns torch tensors.
+# Copied from matchtigs_tpu/ops/device_graph.py; device_buffers returns torch tensors; without its python fallbacks: the port requires the native library.
 """Device-resident graph arrays for the shortest-path phase.
 
 The bidirected de Bruijn *node* graph has out-degree <= 4 (each out-edge
@@ -129,50 +129,32 @@ def build_device_graph(
 
 
 def _fill_padded_adj(g, n, src, dst, w, deg_pad, weight_cap):
-    """Fill the padded [N+1, deg_pad] adjacency: native MT node-range
+    """Fill the padded [N+1, deg_pad] adjacency: the native MT node-range
     pass (graphwalk.cpp:fill_padded_adj, deterministic edge-id slot
-    order) with the vectorized numpy construction as fallback/oracle —
-    the stable-sort + scatter chain cost ~1.7s at 15.7M edges."""
-    try:
-        from .. import native
+    order; an empty edge list gives the sentinel rows).  The tests hold
+    it against the JAX package's device graph."""
+    import os
 
-        lib = native.load()
-    except ImportError:
-        lib = None
-    if lib is not None and len(src):
-        import os
+    from .. import native
 
-        nbr = np.empty((n + 1, deg_pad), dtype=np.int32)
-        nw = np.empty((n + 1, deg_pad), dtype=np.int32)
-        src32 = np.ascontiguousarray(src, dtype=np.int32)
-        dst32 = np.ascontiguousarray(dst, dtype=np.int32)
-        w64 = np.ascontiguousarray(w, dtype=np.int64)
-        overflow = lib.fill_padded_adj(
-            n,
-            len(src32),
-            native.as_i32_ptr(src32),
-            native.as_i32_ptr(dst32),
-            native.as_ll_ptr(w64),
-            deg_pad,
-            weight_cap,
-            min(os.cpu_count() or 1, 16),
-            native.as_i32_ptr(nbr),
-            native.as_i32_ptr(nw),
-        )
-        assert overflow == 0, "deg_pad undersized for the degree sequence"
-        return nbr, nw
-    nbr = np.full((n + 1, deg_pad), n, dtype=np.int32)
-    nw = np.full((n + 1, deg_pad), weight_cap, dtype=np.int32)
-    if len(src):
-        from ..utils.sorting import stable_order
-
-        deg = np.bincount(src, minlength=n)
-        order = stable_order(src, n)
-        slot = np.arange(len(src)) - np.repeat(
-            np.concatenate([[0], np.cumsum(deg)[:-1]]), deg
-        )
-        nbr[src[order], slot] = dst[order]
-        nw[src[order], slot] = np.minimum(w[order], weight_cap)
+    nbr = np.empty((n + 1, deg_pad), dtype=np.int32)
+    nw = np.empty((n + 1, deg_pad), dtype=np.int32)
+    src32 = np.ascontiguousarray(src, dtype=np.int32)
+    dst32 = np.ascontiguousarray(dst, dtype=np.int32)
+    w64 = np.ascontiguousarray(w, dtype=np.int64)
+    overflow = native.load().fill_padded_adj(
+        n,
+        len(src32),
+        native.as_i32_ptr(src32),
+        native.as_i32_ptr(dst32),
+        native.as_ll_ptr(w64),
+        deg_pad,
+        weight_cap,
+        min(os.cpu_count() or 1, 16),
+        native.as_i32_ptr(nbr),
+        native.as_i32_ptr(nw),
+    )
+    assert overflow == 0, "deg_pad undersized for the degree sequence"
     return nbr, nw
 
 

@@ -1,8 +1,10 @@
-# Copied from matchtigs_tpu/ops/euler.py.
+# Copied from matchtigs_tpu/ops/euler.py; without its python fallbacks: the port requires the native library, and the decomposition has no method knob (parsplice, or the int64 route past 2^31 edges).
 """Eulerian machinery for bidirected graphs.
 
-Host-side (numpy + python) implementation of the capabilities the reference
-pulls from ``bigraph::algo::eulerian`` and first-party balancing code:
+Host-side implementation of the capabilities the reference pulls from
+``bigraph::algo::eulerian`` and first-party balancing code, each pass
+native (native/graphwalk.cpp) with the tests holding it against the JAX
+package:
 
 - :func:`make_eulerian_with_breaking_edges` mirrors
   ``make_graph_eulerian_with_breaking_edges``
@@ -13,21 +15,17 @@ pulls from ``bigraph::algo::eulerian`` and first-party balancing code:
   mod.rs:252-285).
 - :func:`eulerian_bicycle_decomposition` mirrors
   ``compute_minimum_bidirected_eulerian_cycle_decomposition``
-  (upstream src/implementation/eulertigs/mod.rs:119): Hierholzer
-  tours where traversing an edge consumes its mirror, spliced into one
-  bicycle per mirror-connected component via O(1) circular-list splices.
+  (upstream src/implementation/eulertigs/mod.rs:119): one bicycle per
+  mirror-connected component, where traversing an edge consumes its
+  mirror.
 - :func:`break_cycles` mirrors the rotate-to-longest-dummy + break rules
   (upstream src/implementation/eulertigs/mod.rs:126-186).
 
-These stages are O(E) pointer walks over tiny data relative to the
-shortest-path phase; the balancer and the tour walk dispatch to native
-C++ passes (native/graphwalk.cpp) with the python implementations kept
-as fallbacks and test oracles; imbalance scans are vectorized numpy.
+Imbalance scans are vectorized numpy.
 """
 
 from __future__ import annotations
 
-import heapq
 import logging
 
 import numpy as np
@@ -36,8 +34,6 @@ from ..graph.bigraph import Bigraph
 from .walks import Walks
 
 logger = logging.getLogger(__name__)
-
-BREAKING = True  # dummy weight == k marks a breaking edge
 
 
 def decomposes_into_eulerian_bicycles(g: Bigraph) -> bool:
@@ -71,52 +67,16 @@ def assert_no_consecutive_dummy_edges(g: Bigraph, k: int) -> None:
         )
 
 
-class _LazyHeap:
-    """Heap over node ids with lazy deletion against a membership dict."""
-
-    def __init__(self, keys, values: dict, descending: bool) -> None:
-        self.values = values
-        self.sign = -1 if descending else 1
-        self.heap = [self.sign * int(k) for k in keys]
-        heapq.heapify(self.heap)
-
-    def _clean(self) -> None:
-        while self.heap and (self.sign * self.heap[0]) not in self.values:
-            heapq.heappop(self.heap)
-
-    def peek(self) -> int | None:
-        self._clean()
-        return self.sign * self.heap[0] if self.heap else None
-
-    def peek2(self) -> tuple[int | None, int | None]:
-        self._clean()
-        if not self.heap:
-            return None, None
-        first = heapq.heappop(self.heap)
-        self._clean()
-        second = self.sign * self.heap[0] if self.heap else None
-        heapq.heappush(self.heap, first)
-        return self.sign * first, second
-
-
 def make_eulerian_with_breaking_edges(
     g: Bigraph, k: int, dummy_edge_id: int
 ) -> int:
     """Add breaking dummy biedges (weight k) until every binode balances.
 
     Returns the updated dummy edge id counter.  Deterministic order matches
-    the reference balancer exactly (see module docstring).  Dispatches to
-    the native C++ pass; this python implementation is the fallback and
-    test oracle.
+    the reference balancer exactly (see module docstring).  The pass is
+    native (graphwalk.cpp:balance_breaking_edges); the tests hold it
+    against the JAX package's balancer.
     """
-    try:
-        return _make_eulerian_native(g, k, dummy_edge_id)
-    except ImportError:
-        logger.warning("native balancer unavailable; using python fallback")
-        return make_eulerian_with_breaking_edges_py(g, k, dummy_edge_id)
-
-
-def _make_eulerian_native(g: Bigraph, k: int, dummy_edge_id: int) -> int:
     from .. import native
 
     lib = native.load()
@@ -183,159 +143,27 @@ def _make_eulerian_native(g: Bigraph, k: int, dummy_edge_id: int) -> int:
     return dummy_edge_id + int(n_pairs)
 
 
-def make_eulerian_with_breaking_edges_py(
-    g: Bigraph, k: int, dummy_edge_id: int
-) -> int:
-    """Pure-python balancer (oracle for the native pass)."""
-    diff = g.imbalances()
-    sm = g.self_mirror_mask()
-    node_ids = np.arange(g.n_nodes, dtype=np.int64)
-
-    # find_non_eulerian_binodes_with_differences: self-mirrors with odd
-    # degree are reported with difference 0 (consumed by the pairing phase);
-    # ordinary unbalanced nodes carry their out-in difference.
-    self_mirror_unbalanced = node_ids[sm & (diff != 0)]
-    out_keys = node_ids[~sm & (diff < 0)]
-    in_keys = node_ids[~sm & (diff > 0)]
-    out_diff = {int(v): int(diff[v]) for v in out_keys}
-    in_diff = {int(v): int(diff[v]) for v in in_keys}
-
-    total_in = sum(in_diff.values())
-    assert -sum(out_diff.values()) == total_in
-    assert (total_in + len(self_mirror_unbalanced)) % 2 == 0
-    logger.info(
-        "Adding edges for %d unmatched in_nodes, %d unmatched out_nodes and "
-        "%d unmatched self_mirror_nodes",
-        len(in_diff),
-        len(out_diff),
-        len(self_mirror_unbalanced),
-    )
-
-    out_heap = _LazyHeap(out_diff.keys(), out_diff, descending=True)
-    in_heap = _LazyHeap(in_diff.keys(), in_diff, descending=False)
-    mirror = g.mirror_node
-
-    def add_breaking(out_node: int, in_node: int, did: int) -> None:
-        g.add_biedge_pair(out_node, in_node, weight=k, handle=-1, forward=True, dummy_id=did)
-
-    # Phase 1: pair up unbalanced self-mirror nodes (mod.rs:481-524).
-    sm_list = self_mirror_unbalanced.tolist()
-    for i in range(0, len(sm_list) - 1, 2):
-        dummy_edge_id += 1
-        add_breaking(sm_list[i], sm_list[i + 1], dummy_edge_id)
-    if len(sm_list) % 2 == 1:
-        out_node = sm_list[-1]
-        in_node = in_heap.peek()
-        assert in_node is not None, (
-            "Uneven number of self-mirrors, but no other nodes with missing in edges"
-        )
-        dummy_edge_id += 1
-        add_breaking(out_node, in_node, dummy_edge_id)
-        in_diff[in_node] -= 1
-        mo = int(mirror[in_node])
-        if in_diff[in_node] == 0:
-            del in_diff[in_node]
-            del out_diff[mo]
-        else:
-            out_diff[mo] += 1
-
-    # Phase 2: out-nodes descending x in-nodes ascending (mod.rs:526-645).
-    while True:
-        out_node = out_heap.peek()
-        if out_node is None:
-            break
-        d_out = out_diff[out_node]
-        first, second = in_heap.peek2()
-        assert first is not None, "No further in_nodes left"
-        # choose_in_node_from_iterator (mod.rs:252-285): skip the first
-        # in-node if it is the out-node's mirror (unless the deficit is
-        # large enough that a mirror biedge, which fixes 2 units, helps)
-        # or the out-node itself.
-        in_node = first
-        if (first == int(mirror[out_node]) and d_out > -2) or first == out_node:
-            assert second is not None, "No further in_nodes left"
-            in_node = second
-
-        is_mirror = in_node == int(mirror[out_node])
-        assert in_node != out_node, "balancer not designed for self mirrors here"
-        dummy_edge_id += 1
-        add_breaking(out_node, in_node, dummy_edge_id)
-
-        out_diff[out_node] += 1
-        in_diff[in_node] -= 1
-        if out_diff[out_node] == 0:
-            del out_diff[out_node]
-        if in_diff.get(in_node) == 0:
-            del in_diff[in_node]
-
-        mirror_out = int(mirror[in_node])
-        mirror_in = int(mirror[out_node])
-        if mirror_out in out_diff:
-            out_diff[mirror_out] += 1
-            if out_diff[mirror_out] == 0:
-                del out_diff[mirror_out]
-        if mirror_in in in_diff:
-            in_diff[mirror_in] -= 1
-            if in_diff[mirror_in] == 0:
-                del in_diff[mirror_in]
-
-    assert not out_diff and not in_diff
-    return dummy_edge_id
-
-
-def eulerian_bicycle_decomposition(
-    g: Bigraph, method: str = "parsplice"
-) -> list[np.ndarray]:
+def eulerian_bicycle_decomposition(g: Bigraph) -> list[np.ndarray]:
     """Decompose a balanced bidirected graph into Eulerian bicycles.
 
-    Traversing an edge consumes its mirror (e ^ 1).  The default
-    ``method="parsplice"`` computes the splice set structurally (a
+    Traversing an edge consumes its mirror (e ^ 1).  Below 2^31 edges and
+    nodes the native parallel splice (graphwalk.cpp
+    parsplice_decompose_impl) computes the splice set structurally (a
     deterministic spanning forest over pi-cycle pairs sharing a binode)
-    and emits the final bicycles via concurrent piece chases — every
-    heavy pass thread-parallel (native/graphwalk.cpp
-    parsplice_decompose_impl; the serial Hierholzer rotation walk it
-    replaces was the last ~2s dependent-load chain of the downstream at
-    60M bases).  ``method="splice"`` is the serial-walk variant (pairing
-    pi + one merged rotation walk), ``"pairing"`` and ``"hierholzer"``
-    the earlier regression variants.  All methods yield the same number
-    of bicycles and the same cumulative tig length (the one-bicycle-per-
-    component minimum decomposition the reference computes,
-    eulertigs/mod.rs:119 via the bigraph crate); the traversal order
-    (hence the exact tig set) differs.
-
-    Dispatches to the native C++ passes (native/graphwalk.cpp) when
-    available; the python implementations are the fallback and test
-    oracles.
+    and emits the final bicycles via concurrent piece chases, every heavy
+    pass thread-parallel; past that the int64 Hierholzer walk
+    (graphwalk.cpp:euler_decompose) runs.  Both yield the one bicycle per
+    component minimum decomposition the reference computes
+    (eulertigs/mod.rs:119 via the bigraph crate); the traversal order
+    (hence the exact tig set) differs.  The tests hold it against the
+    JAX package.
     """
-    try:
-        if g.n_edges < 2**31 - 2 and g.n_nodes < 2**31 - 2:
-            if method == "parsplice":
-                return _decompose_native_i32(g, "euler_decompose_parsplice")
-            if method == "splice":
-                return _decompose_native_i32(g, "euler_decompose_splice")
-            if method == "pairing":
-                return _decompose_native_i32(g, "euler_decompose_pairing")
-        return _eulerian_bicycle_decomposition_native(g)
-    except ImportError:
-        logger.warning("native graphwalk unavailable; using python fallback")
-        if method == "parsplice":
-            return eulerian_bicycle_decomposition_parsplice_py(g)
-        if method == "splice":
-            return eulerian_bicycle_decomposition_splice_py(g)
-        if method == "pairing":
-            return eulerian_bicycle_decomposition_pairing_py(g)
-        return eulerian_bicycle_decomposition_py(g)
+    if g.n_edges < 2**31 - 2 and g.n_nodes < 2**31 - 2:
+        return _decompose_parsplice_i32(g)
+    return _eulerian_bicycle_decomposition_native(g)
 
 
-def _eulerian_bicycle_decomposition_pairing_native(g: Bigraph) -> list[np.ndarray]:
-    return _decompose_native_i32(g, "euler_decompose_pairing")
-
-
-def _eulerian_bicycle_decomposition_splice_native(g: Bigraph) -> list[np.ndarray]:
-    return _decompose_native_i32(g, "euler_decompose_splice")
-
-
-def _decompose_native_i32(g: Bigraph, fn_name: str) -> list[np.ndarray]:
+def _decompose_parsplice_i32(g: Bigraph) -> list[np.ndarray]:
     import os
 
     from .. import native
@@ -351,7 +179,7 @@ def _decompose_native_i32(g: Bigraph, fn_name: str) -> list[np.ndarray]:
     oe32 = np.ascontiguousarray(out_edges, dtype=np.int32)
     cycles_out = np.empty(E, dtype=np.int64)
     offsets_out = np.empty(E, dtype=np.int64)
-    n_cycles = getattr(lib, fn_name)(
+    n_cycles = lib.euler_decompose_parsplice(
         g.n_nodes,
         E,
         native.as_i32_ptr(dst),
@@ -365,7 +193,7 @@ def _decompose_native_i32(g: Bigraph, fn_name: str) -> list[np.ndarray]:
     if n_cycles == -1:
         raise AssertionError("open walk in balanced bidirected graph")
     if n_cycles < 0:
-        raise AssertionError(f"{fn_name} internal error {n_cycles}")
+        raise AssertionError(f"euler_decompose_parsplice internal error {n_cycles}")
     end = int(offsets_out[n_cycles - 1]) if n_cycles else 0
     return Walks(cycles_out[:end], offsets_out[:n_cycles])
 
@@ -408,491 +236,6 @@ def _eulerian_bicycle_decomposition_native(g: Bigraph) -> list[np.ndarray]:
         res.append(cycles_out[prev:end].copy())
         prev = end
     return res
-
-
-def eulerian_bicycle_decomposition_py(g: Bigraph) -> list[np.ndarray]:
-    """Pure-python reference implementation (oracle for the native pass).
-
-    Three phases: (A) raw closed Hierholzer subtours (mirror consumption);
-    (B) group subtours by shared binodes (union-find over min(v, mirror v)
-    keys) — this is the mirror-connected-component relation; (C) stitch
-    each group into ONE bicycle, merging subtours in BFS order and
-    flipping the *incoming* subtour to its mirror representation when it
-    only shares the mirror side.  Phase B/C guarantee the minimum
-    one-bicycle-per-component decomposition even when a subtour bridges
-    several previously separate subtours.
-    """
-    if g.n_edges == 0:
-        return []
-    return _stitch_subtours_py(g, _subtours_hierholzer_py(g))
-
-
-def eulerian_bicycle_decomposition_pairing_py(g: Bigraph) -> list[np.ndarray]:
-    """Pairing-variant oracle: subtours from the mirror-compatible arc
-    pairing (see _subtours_pairing_py), stitched like the Hierholzer
-    variant.  Oracle for native euler_decompose_pairing."""
-    if g.n_edges == 0:
-        return []
-    return _stitch_subtours_py(g, _subtours_pairing_py(g))
-
-
-def eulerian_bicycle_decomposition_splice_py(g: Bigraph) -> list[np.ndarray]:
-    """Splice-variant oracle (native euler_decompose_splice): pairing pi
-    plus ONE merged Hierholzer-rotation walk per mirror-connected
-    component — no subtour arena or stitch phase.
-
-    Why one walk reaches the whole component: marking e and e^1 together
-    drops every cycle's mirror image, so an unvisited in-arc at a walk
-    node always starts a fresh whole-cycle-unvisited pi-cycle; and every
-    cycle pair incident to binode {v, mirror v} has an in-arc AT v among
-    its two mirror representations (a cycle through mirror(v) has an
-    out-arc there whose mirror is an in-arc at v), so the persistent
-    cursor scan over in-arcs of visited nodes finds every incident pair
-    in its correctly-flipped representation.
-    """
-    E = g.n_edges
-    if E == 0:
-        return []
-    out_off, out_edges = g.out_csr()
-    out_edges = np.asarray(out_edges, dtype=np.int64)
-    mirror = g.mirror_node
-    dst = g.dsts()
-    pi = _pairing_pi_py(g)
-    visited = np.zeros(E, dtype=bool)
-    cursor = np.asarray(out_off[:-1], dtype=np.int64).copy()
-
-    def mark(e0: int) -> None:
-        cur = e0
-        while True:
-            visited[cur] = True
-            visited[cur ^ 1] = True
-            cur = int(pi[cur])
-            if cur == e0:
-                break
-
-    cycles: list[np.ndarray] = []
-    for e0 in range(E):
-        if visited[e0]:
-            continue
-        mark(e0)
-        out: list[int] = []
-        cur = e0
-        while True:
-            out.append(cur)
-            v = int(dst[cur])
-            mv = int(mirror[v])
-            c = cursor[mv]  # in-arcs at v live in mv's out slice
-            end = int(out_off[mv + 1])
-            while c < end:
-                a2 = int(out_edges[c]) ^ 1
-                if not visited[a2]:
-                    mark(a2)
-                    pi[cur], pi[a2] = pi[a2], pi[cur]
-                c += 1
-            cursor[mv] = c
-            cur = int(pi[cur])
-            if cur == e0:
-                break
-        cycles.append(np.asarray(out, dtype=np.int64))
-    return cycles
-
-
-LABEL_STEP = 64  # splitter density of the native label/emission passes
-
-
-def eulerian_bicycle_decomposition_parsplice_py(g: Bigraph) -> list[np.ndarray]:
-    """Parallel-splice oracle: bit-for-bit the native
-    euler_decompose_parsplice (graphwalk.cpp), expressed serially.
-
-    Spec (shared with the native pass — any change must touch both):
-
-    1. pi = deterministic mirror-compatible arc pairing; rep[e] = the
-       minimum arc id of e's pi-cycle; pairlabel(e) = min(rep[e],
-       rep[e^1]) names the {cycle, mirror cycle} PAIR.
-    2. Records: scanning nodes ascending and each node's in-arc list (the
-       out-CSR slice of mirror[v], mirrored) in order, emit (first in-arc
-       of the node's first pair, first in-arc of pair p) for every other
-       distinct pair p at the node.  Kruskal over the records in order
-       keeps one spanning-forest edge per pair beyond its component root.
-    3. Orientation: a root pair (minimum pairlabel of its component, and
-       every record-free singleton pair) emits the cycle containing its
-       minimum arc; BFS from each root (roots ascending; a pair's tree
-       edges in acceptance order) orients children: if the parent-side
-       record arc is not on the parent's chosen cycle, flip BOTH record
-       arcs a -> pi[a]^1 (the mirror representation's in-arc at
-       mirror(v)); the child's chosen cycle is the flipped child arc's,
-       and the edge becomes the splice swap pi[aP] <-> pi[aC].  Swaps are
-       resolved against the pristine pi, then applied sequentially in
-       generation order.
-    4. Start set S: arcs e ≡ 0 (mod LABEL_STEP) on chosen cycles, plus
-       pi'[x] for each swap arc x (post-swap successors).  Each final
-       cycle containing a start is emitted piecewise: a piece runs from a
-       start to the next start along pi'; pieces chain into cycles in
-       ascending first-start order.  Pairs whose component has no start
-       (splitterless singletons) are emitted last, ascending chosen rep.
-    """
-    E = g.n_edges
-    if E == 0:
-        return []
-    pi = _pairing_pi_py(g)
-    out_off, out_edges = g.out_csr()
-    out_edges = np.asarray(out_edges, dtype=np.int64)
-    mirror = g.mirror_node
-
-    # 1. per-arc cycle representatives (min arc of the pi-cycle)
-    rep = np.full(E, -1, dtype=np.int64)
-    for e0 in range(E):
-        if rep[e0] >= 0:
-            continue
-        cyc = [e0]
-        cur = int(pi[e0])
-        while cur != e0:
-            cyc.append(cur)
-            cur = int(pi[cur])
-        m = min(cyc)
-        for a in cyc:
-            rep[a] = m
-
-    def pairlabel(a: int) -> int:
-        return min(int(rep[a]), int(rep[a ^ 1]))
-
-    # 2. records + Kruskal spanning forest
-    records: list[tuple[int, int]] = []
-    for v in range(g.n_nodes):
-        mv = int(mirror[v])
-        sl = out_edges[int(out_off[mv]) : int(out_off[mv + 1])]
-        if len(sl) < 2:
-            continue
-        first_arc: dict[int, int] = {}
-        a0 = None
-        for oe in sl.tolist():
-            a = oe ^ 1
-            pl = pairlabel(a)
-            if pl not in first_arc:
-                first_arc[pl] = a
-                if a0 is None:
-                    a0 = a
-                else:
-                    records.append((a0, a))
-
-    parent: dict[int, int] = {}
-
-    def find(x: int) -> int:
-        r = x
-        while parent.setdefault(r, r) != r:
-            r = parent[r]
-        while parent[x] != r:
-            parent[x], x = r, parent[x]
-        return r
-
-    tree: list[tuple[int, int, int, int]] = []  # (a0, a, p0, p)
-    rec_pairs: list[int] = []
-    for a0, a in records:
-        pA, pB = pairlabel(a0), pairlabel(a)
-        rec_pairs += [pA, pB]
-        if find(pA) != find(pB):
-            parent[find(pA)] = find(pB)
-            tree.append((a0, a, pA, pB))
-
-    # 3. roots, BFS orientation, swaps
-    roots: list[int] = []
-    root_seen: set[int] = set()
-    for p in sorted(set(rec_pairs)):
-        f = find(p)
-        if f not in root_seen:
-            root_seen.add(f)
-            roots.append(p)
-    adj: dict[int, list[int]] = {}
-    for i, (_, _, p0, p) in enumerate(tree):
-        adj.setdefault(p0, []).append(i)
-        adj.setdefault(p, []).append(i)
-
-    chosen: dict[int, int] = {}  # pairlabel -> chosen cycle rep
-    for r in np.unique(rep).tolist():
-        pl = min(r, int(rep[r ^ 1]))
-        chosen.setdefault(pl, pl)
-    has_start: set[int] = set()  # chosen reps with an emission start
-    swaps: list[tuple[int, int]] = []
-    visited: set[int] = set()
-    for r0 in roots:
-        visited.add(r0)
-        queue = [r0]
-        qi = 0
-        while qi < len(queue):
-            P = queue[qi]
-            qi += 1
-            for ei in adj.get(P, ()):
-                a0, a, p0, p = tree[ei]
-                C = p if p0 == P else p0
-                if C in visited:
-                    continue
-                visited.add(C)
-                aP, aC = (a0, a) if p0 == P else (a, a0)
-                if int(rep[aP]) != chosen[P]:
-                    aP = int(pi[aP]) ^ 1
-                    aC = int(pi[aC]) ^ 1
-                    assert int(rep[aP]) == chosen[P]
-                chosen[C] = int(rep[aC])
-                has_start.add(chosen[P])
-                has_start.add(chosen[C])
-                swaps.append((aP, aC))
-                queue.append(C)
-    for x, y in swaps:
-        pi[x], pi[y] = pi[y], pi[x]
-
-    # 4. start set, pieces, assembly, leftovers
-    S: set[int] = set()
-    for e in range(0, E, LABEL_STEP):
-        r = int(rep[e])
-        if chosen[min(r, int(rep[e ^ 1]))] == r:
-            S.add(e)
-            has_start.add(r)
-    for x, y in swaps:
-        S.add(int(pi[x]))
-        S.add(int(pi[y]))
-
-    starts = sorted(S)
-    piece: dict[int, tuple[list[int], int]] = {}
-    for s in starts:
-        seq = [s]
-        cur = int(pi[s])
-        while cur not in S:
-            seq.append(cur)
-            cur = int(pi[cur])
-        piece[s] = (seq, cur)
-
-    cycles: list[np.ndarray] = []
-    done: set[int] = set()
-    for s in starts:
-        if s in done:
-            continue
-        seq: list[int] = []
-        j = s
-        while True:
-            sq, nx = piece[j]
-            seq += sq
-            done.add(j)
-            j = nx
-            if j == s:
-                break
-        cycles.append(np.asarray(seq, dtype=np.int64))
-    for r in sorted(set(chosen.values())):
-        if r in has_start:
-            continue
-        seq = [r]
-        cur = int(pi[r])
-        while cur != r:
-            seq.append(cur)
-            cur = int(pi[cur])
-        cycles.append(np.asarray(seq, dtype=np.int64))
-    assert sum(len(c) for c in cycles) == E // 2
-    return cycles
-
-
-def _pairing_pi_py(g: Bigraph) -> np.ndarray:
-    """The deterministic mirror-compatible arc pairing pi (int64 [E]).
-
-    At each binode, the i-th in-arc pairs with the i-th out-arc, where the
-    in-arcs at v are the mirrors of the out-arcs at mirror(v) in CSR
-    order; self-mirror nodes pair their in-arcs by a fixpoint-free
-    involution (adjacent CSR ranks).  pi never sends an arc to its own
-    mirror, so no pi-cycle equals its own mirror image (a self-mirror
-    cycle would force a reflection fixed point m(e)=e — impossible — or
-    an adjacent pair pi(e)=m(e) — forbidden); cycles come in mirror
-    pairs.
-    """
-    E = g.n_edges
-    out_off, out_edges = g.out_csr()
-    out_edges = np.asarray(out_edges, dtype=np.int64)
-    mirror = g.mirror_node
-    src = g.srcs()
-
-    v_of_pos = src[out_edges]  # node of each CSR position (sorted by src)
-    rank = np.arange(E, dtype=np.int64) - out_off[v_of_pos]
-    mv = mirror[v_of_pos].astype(np.int64)
-    sm = mv == v_of_pos
-
-    outdeg = out_off[1:] - out_off[:-1]
-    if not np.array_equal(outdeg, outdeg[mirror]):
-        raise AssertionError("open walk in balanced bidirected graph")
-    sm_nodes = np.flatnonzero(mirror == np.arange(g.n_nodes))
-    if np.any(outdeg[sm_nodes] % 2):
-        raise AssertionError("open walk in balanced bidirected graph")
-
-    pi = np.full(E, -1, dtype=np.int64)
-    ns = ~sm
-    # pi[mirror of i-th out-arc at mv] = i-th out-arc at v (both views of
-    # the same pairing, so writing it for every non-self-mirror v is
-    # idempotent)
-    mpos = out_off[mv[ns]] + rank[ns]
-    pi[out_edges[mpos] ^ 1] = out_edges[ns]
-    # self-mirror: adjacent-rank involution
-    smp = np.flatnonzero(sm)
-    even = smp[rank[smp] % 2 == 0]
-    pi[out_edges[even] ^ 1] = out_edges[even + 1]
-    pi[out_edges[even + 1] ^ 1] = out_edges[even]
-    assert not np.any(pi < 0)
-    assert not np.any(pi == np.arange(E) ^ 1), "pairing maps arc to mirror"
-    return pi
-
-
-def _subtours_pairing_py(g: Bigraph) -> list[list[int]]:
-    """Closed subtours of the arc pairing: scanning start arcs ascending
-    and marking e and e^1 together keeps exactly one cycle per mirror
-    pair — each biedge covered exactly once."""
-    E = g.n_edges
-    pi = _pairing_pi_py(g)
-
-    visited = np.zeros(E, dtype=bool)
-    tours: list[list[int]] = []
-    for e0 in range(E):
-        if visited[e0]:
-            continue
-        tour = []
-        cur = e0
-        while True:
-            tour.append(cur)
-            visited[cur] = True
-            visited[cur ^ 1] = True
-            cur = int(pi[cur])
-            if cur == e0:
-                break
-        tours.append(tour)
-    return tours
-
-
-def _subtours_hierholzer_py(g: Bigraph) -> list[list[int]]:
-    E = g.n_edges
-    out_off, out_edges = g.out_csr()
-    dst = g.dsts()
-    src = g.srcs()
-
-    used = np.zeros(E, dtype=bool)
-    cursor = out_off[:-1].copy()
-
-    def next_unused_out(v: int) -> int:
-        c = cursor[v]
-        end = out_off[v + 1]
-        while c < end and used[out_edges[c]]:
-            c += 1
-        cursor[v] = c
-        return int(out_edges[c]) if c < end else -1
-
-    # -- Phase A: raw closed subtours
-    tours: list[list[int]] = []
-    for e0 in range(E):
-        if used[e0]:
-            continue
-        tour = [e0]
-        used[e0] = True
-        used[e0 ^ 1] = True
-        start = int(src[e0])
-        cur = int(dst[e0])
-        while True:
-            while cur != start:
-                e = next_unused_out(cur)
-                assert e >= 0, "open walk in balanced bidirected graph"
-                tour.append(e)
-                used[e] = True
-                used[e ^ 1] = True
-                cur = int(dst[e])
-            e = next_unused_out(start)
-            if e < 0:
-                break
-            tour.append(e)
-            used[e] = True
-            used[e ^ 1] = True
-            cur = int(dst[e])
-        tours.append(tour)
-    return tours
-
-
-def _stitch_subtours_py(g: Bigraph, tours: list[list[int]]) -> list[np.ndarray]:
-    """Phases B+C: group subtours by shared binodes, stitch each group
-    into one bicycle (shared with both subtour generators)."""
-    E = g.n_edges
-    dst = g.dsts()
-    mirror = g.mirror_node
-
-    # -- Phase B: group subtours by shared binodes
-    binode_tours: dict[int, list[int]] = {}
-    for ti, tour in enumerate(tours):
-        for e in tour:
-            v = int(dst[e])
-            b = min(v, int(mirror[v]))
-            lst = binode_tours.setdefault(b, [])
-            if not lst or lst[-1] != ti:
-                lst.append(ti)
-
-    # -- Phase C: stitch each group into one bicycle (BFS order)
-    nxt = np.full(E, -1, dtype=np.int64)
-    visited = [False] * len(tours)
-    cycles: list[np.ndarray] = []
-    for t0 in range(len(tours)):
-        if visited[t0]:
-            continue
-        visited[t0] = True
-        acc = tours[t0]
-        for a, b in zip(acc, acc[1:]):
-            nxt[a] = b
-        nxt[acc[-1]] = acc[0]
-        occ: dict[int, int] = {}
-        for e in acc:
-            occ.setdefault(int(dst[e]), e)
-        total_len = len(acc)
-        head = acc[0]
-
-        # BFS over the shared-binode relation
-        queue = [t0]
-        qi = 0
-        while qi < len(queue):
-            t = queue[qi]
-            qi += 1
-            for e in tours[t]:
-                v = int(dst[e])
-                b = min(v, int(mirror[v]))
-                for tn in binode_tours.get(b, ()):
-                    if visited[tn]:
-                        continue
-                    visited[tn] = True
-                    queue.append(tn)
-                    sub = tours[tn]
-                    # find the splice node: a node of `sub` (direct or via
-                    # the mirror representation) present in `occ`
-                    anchor = -1
-                    for se in sub:
-                        u = int(dst[se])
-                        if u in occ:
-                            anchor = occ[u]
-                            break
-                        if int(mirror[u]) in occ:
-                            # flip the incoming subtour: reverse + e^1
-                            sub = [x ^ 1 for x in reversed(sub)]
-                            anchor = occ[int(mirror[u])]
-                            break
-                    assert anchor >= 0, "BFS neighbor without shared node"
-                    av = int(dst[anchor])
-                    sub_anchor = next(x for x in sub if int(dst[x]) == av)
-                    for a2, b2 in zip(sub, sub[1:]):
-                        nxt[a2] = b2
-                    nxt[sub[-1]] = sub[0]
-                    nxt[anchor], nxt[sub_anchor] = (
-                        nxt[sub_anchor],
-                        nxt[anchor],
-                    )
-                    for x in sub:
-                        occ.setdefault(int(dst[x]), x)
-                    tours[tn] = sub  # flipped representation for later BFS
-                    total_len += len(sub)
-
-        chain = np.empty(total_len, dtype=np.int64)
-        e = head
-        for i in range(total_len):
-            chain[i] = e
-            e = int(nxt[e])
-        assert e == head, "stitched chain is not circular"
-        cycles.append(chain)
-    return cycles
 
 
 def binode_wcc_labels(g: Bigraph) -> tuple[np.ndarray, int]:
@@ -1114,17 +457,14 @@ def break_cycles(g: Bigraph, cycles: list[np.ndarray], k: int) -> Walks:
     breaking dummies (weight >= k) and at a dummy in position 0.
 
     Faithful to upstream src/implementation/eulertigs/mod.rs:126-186.
-    Dispatches to the native flat pass (graphwalk.cpp:break_cycles_flat);
-    break_cycles_py is the oracle (the vectorized python still paid ~2s
-    of gathers/rolls/slice objects at a 19M-edge bicycle).
+    The pass is native (graphwalk.cpp:break_cycles_flat_mt); the tests
+    hold it against the JAX package's cycle breaker.
     """
-    try:
-        from .. import native
+    import os
 
-        lib = native.load()
-    except ImportError:
-        logger.warning("native graphwalk unavailable; using python fallback")
-        return Walks.from_list(break_cycles_py(g, cycles, k))
+    from .. import native
+
+    lib = native.load()
     if not len(cycles):
         return Walks(np.empty(0, dtype=np.int64), np.empty(0, dtype=np.int64))
     wk = Walks.from_list(cycles)  # no-op when the decomposition's flat form
@@ -1135,8 +475,6 @@ def break_cycles(g: Bigraph, cycles: list[np.ndarray], k: int) -> Walks:
     E = len(flat)
     tigs_out = np.empty(E, dtype=np.int64)
     tig_off = np.empty(max(E, 1), dtype=np.int64)
-    import os
-
     n_tigs = lib.break_cycles_flat_mt(
         len(cycles),
         native.as_ll_ptr(flat),
@@ -1152,47 +490,3 @@ def break_cycles(g: Bigraph, cycles: list[np.ndarray], k: int) -> Walks:
     )
     end = int(tig_off[n_tigs - 1]) if n_tigs else 0
     return Walks(tigs_out[:end], tig_off[:n_tigs])
-
-
-def break_cycles_py(
-    g: Bigraph, cycles: list[np.ndarray], k: int
-) -> list[np.ndarray]:
-    """Python oracle for the native cycle breaker."""
-    weights = g.weights()
-    dummies = g.is_dummy()
-    tigs: list[np.ndarray] = []
-
-    for cycle in cycles:
-        w = weights[cycle]
-        d = dummies[cycle]
-        dummy_w = np.where(d, w, 0)
-        longest = int(dummy_w.max(initial=0))
-        if longest > 0:
-            # first index attaining the max, matching the reference's
-            # strictly-greater scan
-            idx = int(np.argmax(dummy_w))
-            cycle = np.roll(cycle, -idx)
-            d = np.roll(d, -idx)
-            w = np.roll(w, -idx)
-
-        breaks = d & (w >= k)
-        if len(breaks):
-            breaks[0] |= d[0]
-        bpos = np.flatnonzero(breaks)
-        # Segments between consecutive breaks, vectorized: the original
-        # per-break python loop plus a per-tig assert loop cost seconds at
-        # ~1M tigs (19M-edge bicycle at 60M bases).
-        starts = np.concatenate([[0], bpos + 1])
-        ends = np.concatenate([bpos, [len(cycle)]])
-        # Tail rule: a trailing non-breaking dummy is dropped from the
-        # last segment (eulertigs/mod.rs:126-186).
-        if starts[-1] < len(cycle) and len(d) and d[-1]:
-            ends[-1] = len(cycle) - 1
-        keep = starts < ends
-        starts, ends = starts[keep], ends[keep]
-        assert not dummies[cycle[starts]].any()
-        assert not dummies[cycle[ends - 1]].any()
-        tigs.extend(
-            cycle[s:e] for s, e in zip(starts.tolist(), ends.tolist())
-        )
-    return tigs

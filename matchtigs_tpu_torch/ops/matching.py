@@ -1,4 +1,4 @@
-# Copied from matchtigs_tpu/ops/matching.py; greedy_accept owns its chunk list (packs it into one key array, releasing each chunk, sorts with utils/sorting.py:value_sort, scans the packed keys) in place of the native fused and chunked sorts, whose scratch lives as long as the process.
+# Copied from matchtigs_tpu/ops/matching.py; greedy_accept owns its chunk list (packs it into one key array, releasing each chunk, sorts with utils/sorting.py:value_sort, scans the packed keys) in place of the native fused and chunked sorts, whose scratch lives as long as the process; without its python fallbacks: the port requires the native library.
 """Deterministic greedy matching over shortest-path candidates.
 
 Replaces the reference's online greedy matching under fine-grained node
@@ -23,8 +23,6 @@ protocol exactly:
 
 from __future__ import annotations
 
-import logging
-
 import numpy as np
 import torch
 
@@ -32,8 +30,6 @@ from ..graph.bigraph import Bigraph
 from ..ops.candidates import Candidates
 from ..utils.sorting import value_sort
 from ..utils.tracing import NOOP
-
-logger = logging.getLogger(__name__)
 
 
 def unbalanced_nodes(g: Bigraph):
@@ -62,8 +58,9 @@ def greedy_accept(
     """Accept candidate paths greedily; returns accepted [A, 3] triples.
 
     Candidates are sorted by (dist, out_node, in_node) before the scan, so
-    the result is deterministic for a given candidate set.  The scan runs
-    natively (native/tigs.cpp) with the python loop as fallback/oracle.
+    the result is deterministic for a given candidate set.  The scan is
+    native (native/tigs.cpp); the tests hold it against the JAX package's
+    python scan.
 
     The candidates are CONSUMED: a list of chunks is left empty, and a
     chunk's columns are released as soon as its keys are written.  Within
@@ -88,11 +85,7 @@ def greedy_accept(
         keys, released = _pack_owned_chunks(chunks, n)
         # the radix sort's scratch: one key a candidate
         released += keys.nbytes * value_sort(keys)
-        try:
-            accepted = _scan_sorted_keys(g, keys, multiplicities)
-        except ImportError:
-            logger.warning("native tigs pass unavailable; using python fallback")
-            accepted = greedy_accept_scan_py(g, _unpack_keys(keys), multiplicities)
+        accepted = _scan_sorted_keys(g, keys, multiplicities)
         del keys
     else:
         accepted = _accept_unpacked(g, chunks, multiplicities)
@@ -103,19 +96,14 @@ def greedy_accept(
 
 def _accept_unpacked(g: Bigraph, chunks: list, m: np.ndarray) -> np.ndarray:
     """Ids >= 2^28 or distances >= 128: the concatenated columns in
-    lexsort order, scanned natively (python fallback)."""
+    lexsort order, scanned natively (native/tigs.cpp); the tests hold it
+    against the JAX package's python scan."""
     cat = Candidates.concat(chunks)
     chunks.clear()
     cu, cv, cd = (np.ascontiguousarray(c, dtype=np.int64) for c in (cat.u, cat.v, cat.d))
     del cat
     order = np.lexsort((cv, cu, cd))
-    try:
-        return _greedy_accept_native(g, order, cu, cv, cd, m)
-    except ImportError:
-        logger.warning("native tigs pass unavailable; using python fallback")
-        return greedy_accept_scan_py(
-            g, np.stack([cu[order], cv[order], cd[order]], axis=1), m
-        )
+    return _greedy_accept_native(g, order, cu, cv, cd, m)
 
 
 def _pack_owned_chunks(chunks: list, n: int) -> tuple[np.ndarray, int]:
@@ -172,12 +160,6 @@ def _key_buffer(c: Candidates, n: int) -> np.ndarray:
         if start + n <= len(base):
             return base[start : start + n]
     return np.empty(n, dtype=np.int64)
-
-
-def _unpack_keys(keys: np.ndarray) -> np.ndarray:
-    """[M, 3] (u, v, d) triples of packed acceptance keys."""
-    mask28 = np.int64((1 << 28) - 1)
-    return np.stack([(keys >> 28) & mask28, keys & mask28, keys >> 56], axis=1)
 
 
 def pack_accept_keys(chunks) -> np.ndarray | None:
@@ -295,50 +277,3 @@ def _greedy_accept_native(
     m[:] = m64  # propagate multiplicity updates to the caller's array
     sel = accepted[:n_acc]
     return np.stack([cu[sel], cv[sel], cd[sel]], axis=1)
-
-
-def greedy_accept_scan_py(
-    g: Bigraph, cands: np.ndarray, multiplicities: np.ndarray
-) -> np.ndarray:
-    """Python oracle for the native scan; expects pre-sorted candidates."""
-    m = multiplicities
-    mirror = g.mirror_node
-    sm = g.self_mirror_mask()
-    accepted: list[tuple[int, int, int]] = []
-
-    for u, v, d in cands.tolist():
-        u_sm = bool(sm[u])
-        mu = int(mirror[u])
-        is_mirror_edge = (v == mu) and not u_sm
-
-        if u_sm:
-            out_mult = m[u]  # in [0, 1]
-        else:
-            out_mult = -m[u]
-        if out_mult <= 0:
-            continue
-        if is_mirror_edge:
-            if out_mult < 2:
-                continue
-        else:
-            v_sm = bool(sm[v])
-            in_mult = m[v]
-            if in_mult <= 0:
-                continue
-
-        # accept
-        accepted.append((u, v, d))
-        red = 2 if is_mirror_edge else 1
-        if u_sm:
-            m[u] -= 1
-        else:
-            m[u] += red
-            m[mu] -= red
-        if not is_mirror_edge:
-            m[v] -= 1
-            if not v_sm:
-                m[int(mirror[v])] += 1
-
-    if not accepted:
-        return np.empty((0, 3), dtype=np.int64)
-    return np.asarray(accepted, dtype=np.int64)

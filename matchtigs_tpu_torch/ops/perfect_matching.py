@@ -1,4 +1,4 @@
-# Copied from matchtigs_tpu/ops/perfect_matching.py; comments keep their reasons and drop the JAX package's host timings.
+# Copied from matchtigs_tpu/ops/perfect_matching.py; comments keep their reasons and drop the JAX package's host timings; without its networkx fallback: the port requires the native library.
 """Maximum-weight matching front-end for optimal matchtigs.
 
 The reference reduces optimal tig joining to min-cost *perfect* matching on
@@ -24,8 +24,7 @@ Galil primal-dual, native/blossom_sparse.cpp -- exact at any component
 size, O(V+E) memory); tiny components use closed forms, and components
 up to ``dense_limit`` can be routed through the independent dense O(n^3)
 blossom (a second implementation used as a cross-check oracle in tests).
-Falls back to networkx (pure python, same optimum) when no C++ toolchain
-is available.
+Both are native; the port requires the library.
 """
 
 from __future__ import annotations
@@ -57,13 +56,9 @@ def max_weight_matching_dense(weights: np.ndarray) -> tuple[np.ndarray, int]:
     assert weights.shape == (n, n)
     w = np.ascontiguousarray(weights, dtype=np.int64)
     assert (w == w.T).all(), "weight matrix must be symmetric"
-    try:
-        from .. import native
+    from .. import native
 
-        lib = native.load()
-    except Exception as e:  # toolchain missing: python fallback
-        logger.warning("native matcher unavailable (%s); using networkx", e)
-        return _mwm_networkx(w)
+    lib = native.load()
     mate = np.empty(n, dtype=np.int32)
     total = lib.mwm_dense(
         n,
@@ -84,17 +79,9 @@ def max_weight_matching_sparse(
     """
     if n == 0:
         return np.empty(0, dtype=np.int32), 0
-    try:
-        from .. import native
+    from .. import native
 
-        lib = native.load()
-    except Exception as e:  # toolchain missing: python fallback
-        logger.warning("native sparse matcher unavailable (%s); using networkx", e)
-        w = np.zeros((n, n), dtype=np.int64)
-        for a, b, c in edges.tolist():
-            w[a, b] = max(w[a, b], c)
-            w[b, a] = w[a, b]
-        return _mwm_networkx(w)
+    lib = native.load()
     eu = np.ascontiguousarray(edges[:, 0], dtype=np.int64)
     ev = np.ascontiguousarray(edges[:, 1], dtype=np.int64)
     ew = np.ascontiguousarray(edges[:, 2], dtype=np.int64)
@@ -136,8 +123,6 @@ def max_weight_matching_sparse_batch(
     ev = np.ascontiguousarray(ev, dtype=np.int64)
     ew = np.ascontiguousarray(ew, dtype=np.int64)
     mate = np.empty(n_total, dtype=np.int32)
-    import logging as _logging
-
     total = lib.mwm_sparse_batch(
         n_comps,
         native.as_ll_ptr(node_off),
@@ -149,29 +134,9 @@ def max_weight_matching_sparse_batch(
         n_threads,
         # periodic %-progress to stderr while the batch runs (minutes on
         # giant components); follows the logger's effective level
-        1 if _logging.getLogger(__name__).isEnabledFor(_logging.INFO) else 0,
+        1 if logger.isEnabledFor(logging.INFO) else 0,
     )
     return mate, int(total)
-
-
-def _mwm_networkx(w: np.ndarray) -> tuple[np.ndarray, int]:
-    import networkx as nx
-
-    n = w.shape[0]
-    gr = nx.Graph()
-    gr.add_nodes_from(range(n))
-    us, vs = np.nonzero(w > 0)
-    for u, v in zip(us.tolist(), vs.tolist()):
-        if u < v:
-            gr.add_edge(u, v, weight=int(w[u, v]))
-    matching = nx.max_weight_matching(gr, maxcardinality=False)
-    mate = np.full(n, -1, dtype=np.int32)
-    total = 0
-    for u, v in matching:
-        mate[u] = v
-        mate[v] = u
-        total += int(w[u, v])
-    return mate, total
 
 
 def component_matching_variants(

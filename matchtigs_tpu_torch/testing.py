@@ -1,4 +1,4 @@
-# Copied from matchtigs_tpu/testing.py; adds assert_tigs_spell_kmer_strings for k > 63, ball_graph (stage graphs with a ball of a given size), capi_merges and graph_links (a graph's topology as C ABI merge calls and as the links of a BCALM2 or GFA file), write_fasta, write_bcalm2 and write_gfa (those files, built over whole columns), same_graph_up_to_node_ids and split_linkless_nodes, unitigs_from_kmers runs its lookups in threads (same output), make_pangenome_store(device=...) builds the k-mer sets and unitigs with torch on a device for k <= 63 (same output; pangenome_on_device, unitig_codes_from_kmers, spelled_kmers_torch), and the two-word path handles k = 32 (the original raises there: its predecessor shift goes negative).
+# Copied from matchtigs_tpu/testing.py; adds assert_tigs_spell_kmer_strings for k > 63, ball_graph (stage graphs with a ball of a given size), capi_merges and graph_links (a graph's topology as C ABI merge calls and as the links of a BCALM2 or GFA file), write_fasta, write_bcalm2 and write_gfa (those files, built over whole columns), same_graph_up_to_node_ids and split_linkless_nodes, unitigs_from_kmers runs its lookups in threads (same output), make_pangenome_store(device=...) builds the k-mer sets and unitigs with torch on a device for k <= 63 (same output; pangenome_on_device, unitig_codes_from_kmers, spelled_kmers_torch), and the two-word path handles k = 32 (the original raises there: its predecessor shift goes negative); without its python fallbacks: the port requires the native library.
 """Synthetic data generation and oracle checks.
 
 The reference repo ships no fixtures; its real test oracle is k-mer-set
@@ -280,7 +280,7 @@ def unitigs_from_kmers(kmers: np.ndarray, k: int) -> list[np.ndarray]:
     has_contracted_in[nxt[nxt >= 0]] = True
     starts = np.flatnonzero(~has_contracted_in).astype(np.int64)
 
-    # Chain following (native C++ with python fallback).
+    # Chain following (native C++).
     order, offsets = _follow_chains(n, nxt, starts)
 
     # Materialize sequences vectorized: chain = first kmer + one base per
@@ -390,40 +390,18 @@ def _unitigs_from_kmers_2x64(kmers: np.ndarray, k: int) -> list[np.ndarray]:
 
 
 def _follow_chains(n: int, nxt: np.ndarray, starts: np.ndarray):
-    """(order, chain end offsets) via native follow_chains or python."""
-    try:
-        from . import native
+    """(order, chain end offsets) via the native follow_chains."""
+    from . import native
 
-        lib = native.load()
-        order = np.empty(n, dtype=np.int64)
-        offsets = np.empty(n + 1, dtype=np.int64)
-        p = native.as_ll_ptr
-        n_chains = lib.follow_chains(
-            n, p(np.ascontiguousarray(nxt)), len(starts),
-            p(np.ascontiguousarray(starts)), p(order), p(offsets),
-        )
-        return order, offsets[:n_chains]
-    except ImportError:
-        visited = np.zeros(n, dtype=bool)
-        order_l: list[int] = []
-        offsets_l: list[int] = []
-
-        def walk(u: int) -> None:
-            while u >= 0 and not visited[u]:
-                visited[u] = True
-                order_l.append(u)
-                u = int(nxt[u])
-            offsets_l.append(len(order_l))
-
-        for s in starts.tolist():
-            if not visited[s]:
-                walk(s)
-        for u in range(n):
-            if not visited[u]:
-                walk(u)
-        return np.asarray(order_l, dtype=np.int64), np.asarray(
-            offsets_l, dtype=np.int64
-        )
+    lib = native.load()
+    order = np.empty(n, dtype=np.int64)
+    offsets = np.empty(n + 1, dtype=np.int64)
+    p = native.as_ll_ptr
+    n_chains = lib.follow_chains(
+        n, p(np.ascontiguousarray(nxt)), len(starts),
+        p(np.ascontiguousarray(starts)), p(order), p(offsets),
+    )
+    return order, offsets[:n_chains]
 
 
 # -- the torch generator (k <= 63) ------------------------------------------

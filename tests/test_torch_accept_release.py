@@ -4,8 +4,8 @@
 them into one acceptance key array largest chunk first, releasing each
 chunk as soon as its keys are written, sorts and scans the keys, and
 leaves the list empty; nothing candidate-sized outlives the call.  Here:
-the accepted triples and the mutated multiplicities against the python
-oracle, the JAX package's acceptance and the port's own acceptance of
+the accepted triples and the mutated multiplicities against the JAX
+package's python scan, its acceptance and the port's own acceptance of
 the concatenated columns; that every column, and every native triple
 buffer, is freed by the time acceptance returns inside
 ``compute_greedytigs``; and the ``released_bytes`` counter of the
@@ -28,11 +28,7 @@ from matchtigs_tpu_torch.graph.build import build_bigraph_from_unitigs
 from matchtigs_tpu_torch.ops import sssp
 from matchtigs_tpu_torch.ops.candidates import Candidates
 from matchtigs_tpu_torch.ops.device_graph import build_device_graph
-from matchtigs_tpu_torch.ops.matching import (
-    greedy_accept,
-    greedy_accept_scan_py,
-    unbalanced_nodes,
-)
+from matchtigs_tpu_torch.ops.matching import greedy_accept, unbalanced_nodes
 from matchtigs_tpu_torch.utils import tracing
 
 
@@ -122,7 +118,7 @@ def test_releasing_acceptance_matches_the_oracles(name):
     g, mirror, m0, cols = _random_case(len(name), sizes, d_hi)
     make = _triple_buffer if layout == "triple" else (lambda col: Candidates(*(c.copy() for c in col)))
     chunks = [make(col) for col in cols]
-    want_py = greedy_accept_scan_py(g, _sorted_triples(chunks), m_py := m0.copy())
+    want_py = JM.greedy_accept_scan_py(g, _sorted_triples(chunks), m_py := m0.copy())
     cat = Candidates.concat([Candidates(*(c.copy() for c in col)) for col in cols])
     want_cat = greedy_accept(g, cat, m_cat := m0.copy())
     got, released = _accept_traced(g, chunks, m := m0.copy())
@@ -139,7 +135,7 @@ def test_releasing_acceptance_past_2_22_matches_the_jax_package():
     sizes = [2_500_000, 0, 1_800_000, 3]
     g, mirror, m0, cols = _random_case(22, sizes, n=100_000, n_self=2000)
     chunks = [Candidates(*(c.copy() for c in col)) for col in cols]
-    want_py = greedy_accept_scan_py(g, _sorted_triples(chunks), m_py := m0.copy())
+    want_py = JM.greedy_accept_scan_py(g, _sorted_triples(chunks), m_py := m0.copy())
     jchunks = [JCandidates(*(c.copy() for c in col)) for col in cols]
     want_jax = JM.greedy_accept(JBigraph(len(mirror), mirror.copy()), jchunks, m_jax := m0.copy())
     got, released = _accept_traced(g, chunks, m := m0.copy())
@@ -156,7 +152,7 @@ def test_distances_past_the_packed_key_take_the_unpacked_route(sizes):
     g, mirror, m0, cols = _random_case(7, sizes, d_hi=200)
     assert max(int(c[2].max(initial=0)) for c in cols) >= 128
     chunks = [Candidates(*(c.copy() for c in col)) for col in cols]
-    want = greedy_accept_scan_py(g, _sorted_triples(chunks), m_py := m0.copy())
+    want = JM.greedy_accept_scan_py(g, _sorted_triples(chunks), m_py := m0.copy())
     got, released = _accept_traced(g, chunks, m := m0.copy())
     assert chunks == [] and len(got) > 0
     assert np.array_equal(got, want) and np.array_equal(m, m_py)
@@ -169,7 +165,7 @@ def test_multiplicities_off_the_invariant_still_match_the_oracle():
     g, mirror, _, cols = _random_case(5, [4000, 3000])
     m0 = np.random.default_rng(5).integers(-3, 4, len(mirror)).astype(np.int64)
     chunks = [Candidates(*(c.copy() for c in col)) for col in cols]
-    want = greedy_accept_scan_py(g, _sorted_triples(chunks), m_py := m0.copy())
+    want = JM.greedy_accept_scan_py(g, _sorted_triples(chunks), m_py := m0.copy())
     got = greedy_accept(g, chunks, m := m0.copy())
     assert np.array_equal(got, want) and np.array_equal(m, m_py)
 
@@ -220,7 +216,7 @@ def test_native_chunks_from_the_host_dijkstra_match_the_oracle(pangenome, native
                 for s in (out_nodes[:half], out_nodes[half:])]
 
     triples = _sorted_triples(make())
-    want = greedy_accept_scan_py(g, triples, m_py := m0.copy())
+    want = JM.greedy_accept_scan_py(g, triples, m_py := m0.copy())
     wrapped, live = native_buffers
     chunks = make()
     assert len(live) == 2
