@@ -102,8 +102,9 @@ on the 60 Mbp pangenome and on a C. elegans-sized one past 2^24 nodes:
 - ``matchtigs_celegans_collapse``: the optimal front's candidates there
   from the device engine (one ``sssp_wide`` launch) and the host engine,
   equal as sets, and their collapses into matching edges, the device
-  engine's on the route its matching-id count picks (past 2^23 ids the
-  argsort route), the host engine's on the argsort route: equal in all
+  engine's on the route its matching-id count picks (up to 2^26 ids the
+  packed route, at 24-bit ids here), the host engine's on the argsort
+  route: equal in all
   five columns; ``cli_matchtigs_celegans``: the optimal-matchtigs CLI from
   the same fasta (one ``sssp_wide`` launch), spelling the input k-mer set,
   no longer than greedy, with its instance sizes and the front's laps;
@@ -206,8 +207,8 @@ CELEGANS_COUNTS = dict(unitigs=13_092_454, kmers=251_006_893, nodes=17_081_052,
 CELEGANS_SHA256 = "d4a1c4802acc63bbfcdd8053bc5d26856cfa09b63fd8b4021224bf80881860cf"
 CELEGANS_GREEDY_PAIRS = 1  # device/host library runs, alternating
 # the matching-id count from which the candidate collapse leaves its packed
-# value sort (23-bit ids) for the argsort route
-ARGSORT_IDS = 1 << 23
+# value sort (ids of 23 to 26 bits) for the argsort route
+ARGSORT_IDS = (1 << 26) + 1
 # the deep-ball configuration: the flagship's pangenome at k=63 with the
 # device stage at first capacity 16 (BASELINE.md:103-107, :536-540); the
 # sha256 and counts of the JAX package's numpy generator at the flagship's
@@ -2008,10 +2009,11 @@ def celegans_collapse(g, k: int, stage_launches: dict) -> dict:
     """The phase ``matchtigs_celegans_collapse``: the optimal front's
     candidates from the device engine (one stage launch) and from the host
     engine, equal as sets; then the device-order candidates collapsed on
-    the route their id count picks, and the host-order ones on the argsort
-    route (forced below 2^23 ids by passing ``ARGSORT_IDS``, which keeps
-    the pair keys' order), all five columns equal.  Returns the device
-    engine's launches per kernel."""
+    the route their id count picks (the packed route and its id width),
+    and the host-order ones on the argsort route (forced below 2^26 + 1
+    ids by passing ``ARGSORT_IDS``, which keeps the pair keys' order), all
+    five columns equal.  Returns the device engine's launches per
+    kernel."""
     from matchtigs_tpu_torch.algos import matchtigs as mt
     from matchtigs_tpu_torch.algos.greedytigs import GreedytigConfig, collect_candidates
     from matchtigs_tpu_torch.ops import sssp
@@ -2034,10 +2036,12 @@ def celegans_collapse(g, k: int, stage_launches: dict) -> dict:
     n_candidates = len(cands["device"])  # the collapse empties the candidates
 
     packed_calls = [0]
+    id_bits = {}
     packed = mt._collapse_candidates_packed
 
     def counted(*a):
         packed_calls[0] += 1
+        id_bits[engine] = a[4]
         return packed(*a)
     collapsed, collapse_s, routes = {}, {}, {}
     mt._collapse_candidates_packed = counted
@@ -2054,7 +2058,7 @@ def celegans_collapse(g, k: int, stage_launches: dict) -> dict:
     same_columns = all(np.array_equal(a, b)
                        for a, b in zip(collapsed["device"], collapsed["host"]))
     phase("matchtigs_celegans_collapse", seconds=time.monotonic() - t0, n_ids=n_ids,
-          past_packed_id_limit=n_ids >= ARGSORT_IDS, routes=routes,
+          past_packed_id_limit=n_ids >= ARGSORT_IDS, routes=routes, id_bits=id_bits,
           candidates=n_candidates, candidate_s=candidate_s,
           rows=len(collapsed["device"][0]), collapse_s=collapse_s, launches=launches,
           candidate_sets_equal=bool(same_set), columns_equal=same_columns,
@@ -2062,7 +2066,8 @@ def celegans_collapse(g, k: int, stage_launches: dict) -> dict:
     check(launches == stage_launches,
           f"C. elegans candidates launched {launches}, expected {stage_launches}")
     check(same_set, "C. elegans candidates differ between the device and host engines")
-    check(routes["host"] == "argsort" and same_columns,
+    device_route = "packed" if n_ids < ARGSORT_IDS else "argsort"
+    check(routes == dict(device=device_route, host="argsort") and same_columns,
           f"C. elegans collapses differ across engines and routes {routes}")
     return launches
 

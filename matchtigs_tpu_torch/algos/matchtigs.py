@@ -1,4 +1,4 @@
-# Copied from matchtigs_tpu/algos/matchtigs.py; MatchtigConfig has no batch_size and names its device, _connected_component_labels comes from graph/build.py, comments keep their reasons and drop the JAX package's host timings, _collapse_candidates's argsort route breaks ties as its packed route does (F7), the collapse and the matching drop the candidate columns, the expanded rows and the bucketing scratch at their last read (counted as released_bytes); without its python fallbacks: the port requires the native library, so the numpy pair dedup beside pair_dedup_min_dist and its _value_sort are gone.
+# Copied from matchtigs_tpu/algos/matchtigs.py; MatchtigConfig has no batch_size and names its device, _connected_component_labels comes from graph/build.py, comments keep their reasons and drop the JAX package's host timings, _collapse_candidates's packed route holds up to 2^26 ids (its id width per call, not 23 bits) and its argsort route breaks ties as the packed route does (F7), the collapse and the matching drop the candidate columns, the expanded rows and the bucketing scratch at their last read (counted as released_bytes); without its python fallbacks: the port requires the native library, so the numpy pair dedup beside pair_dedup_min_dist and its _value_sort are gone.
 """Optimal matchtigs: minimum plain-text representation with repetition.
 
 Capability-equivalent of ``MatchtigAlgorithm``
@@ -159,7 +159,11 @@ def _collapse_candidates(
     Returns (keys_a, keys_b, w, u, v) arrays, one row per unique id pair,
     sorted ascending by the pair key ``keys_a * n_ids + keys_b`` (the
     apply step relies on this to skip a re-sort), the same on either
-    route and in any candidate order.
+    route and in any candidate order.  The packed value sort takes every
+    instance whose row fits one int64: ids of at most 26 bits (the row
+    has ``2 * id_bits + 10``) and weights under 128; the argsort route
+    the rest.  ``collapse.expand`` counts the row's ``id_bits`` (0 on the
+    argsort route).
 
     The candidates are CONSUMED: their columns are emptied on entry and
     die, with any native triple buffer behind them, once the expansion
@@ -176,15 +180,16 @@ def _collapse_candidates(
     candidates.u = candidates.v = candidates.d = np.empty(0, dtype=np.int64)
     owned = _Owned(*cols)
     assert np.all(cols[2] >= 1), "zero-weight candidate path"
-    if n_ids < (1 << 23) and int(cols[2].max(initial=0)) < 128:
-        return _collapse_candidates_packed(g, cols, ids_start, ids_count, n_ids, owned)
+    idb = max(23, (n_ids - 1).bit_length())
+    if idb <= 26 and int(cols[2].max(initial=0)) < 128:
+        return _collapse_candidates_packed(g, cols, ids_start, ids_count, idb, owned)
     with span("collapse.expand") as sp:
         rows = list(
             _expand_candidate_ids(*cols, ids_start, ids_count, extras=cols[:2])
         )
         cols.clear()
         owned.own(*rows)
-        sp.add(rows=len(rows[0]))
+        sp.add(rows=len(rows[0]), id_bits=0)
     with span("collapse.dedup") as sp:
         res = _dedup_argsort(g, rows, n_ids)
         sp.add(pairs=len(res[0]), released_bytes=owned.freed())
@@ -192,10 +197,11 @@ def _collapse_candidates(
 
 
 def _dedup_argsort(g, rows, n_ids):
-    """The argsort route's dedup: per id pair the row with the minimum
-    ``(w, o, su, sv)``, ascending by pair key.  ``rows`` is the
-    expansion's list ``[a, b, wrow, uu, vv]``; it is emptied, and each
-    column and sort temporary is dropped at its last read."""
+    """The argsort route's dedup (past 2^26 ids, or a weight of 128 and
+    up): per id pair the row with the minimum ``(w, o, su, sv)``,
+    ascending by pair key.  ``rows`` is the expansion's list ``[a, b,
+    wrow, uu, vv]``; it is emptied, and each column and sort temporary is
+    dropped at its last read."""
     a, b, wrow, uu, vv = rows
     rows.clear()
     keep = a != b  # same-id self-loops only from mirror biedges
@@ -222,22 +228,10 @@ def _dedup_argsort(g, rows, n_ids):
     tie |= is_canon[ur].astype(np.int64) << 1
     tie |= is_canon[vr]
     del is_canon
-    wmax = int(wr.max(initial=0))
-    if wmax < 128 and n_ids < (1 << 26):
-        # single packed key (one argsort) instead of a two-key lexsort;
-        # equal keys are equal rows, so the sort need not be stable
-        key <<= 10
-        key |= tie
-        del tie
-        order = np.argsort(key)
-        key_s = key[order]
-        del key
-        key_s >>= 10
-    else:
-        order = np.lexsort((tie, key))
-        del tie
-        key_s = key[order]
-        del key
+    order = np.lexsort((tie, key))
+    del tie
+    key_s = key[order]
+    del key
     first = np.ones(len(key_s), dtype=bool)
     first[1:] = key_s[1:] != key_s[:-1]
     del key_s
@@ -267,13 +261,9 @@ class _Owned:
         return sum(n for r, n in self._refs if r() is None)
 
 
-_IDB = 23  # id bits in the packed collapse row (n_ids < 2^23)
-_ID_MASK = (1 << _IDB) - 1
-
-
-def _expand_pack_native(g, u, v, w, ids_start, ids_count, is_canon):
-    """Fused MT expansion + row packing + MT radix sort
-    (extract.cpp:collapse_expand_pack + radix.cpp:radix_sort_i64):
+def _expand_pack_native(u, v, w, ids_start, ids_count, is_canon, idb):
+    """Fused MT expansion + row packing (ids of ``idb`` bits) + MT radix
+    sort (extract.cpp:collapse_expand_pack + radix.cpp:radix_sort_i64):
     returns the SORTED packed rows.  Avoids the full-length expansion
     temporaries: the collapse's cold cost is first-touch fault exposure,
     not arithmetic."""
@@ -298,7 +288,7 @@ def _expand_pack_native(g, u, v, w, ids_start, ids_count, is_canon):
         wrote = int(
             lib.collapse_expand_pack(
                 len(u64), p(u64), p(v64), p(w64), p(starts), p(counts),
-                native.as_i8_ptr(canon8), _IDB, nt, p(packed),
+                native.as_i8_ptr(canon8), idb, nt, p(packed),
             )
         )
         assert wrote == n
@@ -307,10 +297,10 @@ def _expand_pack_native(g, u, v, w, ids_start, ids_count, is_canon):
     return packed
 
 
-def _dedup_resolve_native(packed, node_of_id, mirror):
+def _dedup_resolve_native(packed, node_of_id, mirror, idb):
     """Fused dedup + unpack + id->node resolution of the SORTED packed
-    collapse rows (extract.cpp:collapse_dedup_resolve): emits
-    (lo, hi, w, ur, vr) directly, skipping the numpy gather/where
+    collapse rows, ids of ``idb`` bits (extract.cpp:collapse_dedup_resolve):
+    emits (lo, hi, w, ur, vr) directly, skipping the numpy gather/where
     epilogue.  None below the thread-spawn payoff (numpy path)."""
     import os
 
@@ -325,7 +315,7 @@ def _dedup_resolve_native(packed, node_of_id, mirror):
     mirror = np.ascontiguousarray(mirror, dtype=np.int64)
     n_keep = int(
         lib.collapse_dedup_resolve(
-            len(packed), p(packed), _IDB, p(node_of_id), p(mirror), nt,
+            len(packed), p(packed), idb, p(node_of_id), p(mirror), nt,
             None, None, None, None, None,
         )
     )
@@ -336,7 +326,7 @@ def _dedup_resolve_native(packed, node_of_id, mirror):
     vr = np.empty(n_keep, dtype=np.int64)
     wrote = int(
         lib.collapse_dedup_resolve(
-            len(packed), p(packed), _IDB, p(node_of_id), p(mirror), nt,
+            len(packed), p(packed), idb, p(node_of_id), p(mirror), nt,
             p(lo), p(hi), p(wk), p(ur), p(vr),
         )
     )
@@ -344,11 +334,12 @@ def _dedup_resolve_native(packed, node_of_id, mirror):
     return lo, hi, wk, ur, vr
 
 
-def _dedup_unpack_native(packed: np.ndarray):
+def _dedup_unpack_native(packed: np.ndarray, idb: int):
     """First-per-key dedup + self-pair drop + column unpack of the SORTED
-    packed collapse rows in one MT pass (extract.cpp:collapse_dedup_unpack)
-    — replaces six numpy passes and their full-length temporaries.  None
-    below the thread-spawn payoff (numpy path)."""
+    packed collapse rows (ids of ``idb`` bits) in one MT pass
+    (extract.cpp:collapse_dedup_unpack) — replaces six numpy passes and
+    their full-length temporaries.  None below the thread-spawn payoff
+    (numpy path)."""
     import os
 
     from .. import native
@@ -360,7 +351,7 @@ def _dedup_unpack_native(packed: np.ndarray):
     nt = min(os.cpu_count() or 1, 16)
     n_keep = int(
         lib.collapse_dedup_unpack(
-            len(packed), p(packed), _IDB, nt, None, None, None, None, None,
+            len(packed), p(packed), idb, nt, None, None, None, None, None,
             None,
         )
     )
@@ -373,7 +364,7 @@ def _dedup_unpack_native(packed: np.ndarray):
     i8 = native.as_i8_ptr
     wrote = int(
         lib.collapse_dedup_unpack(
-            len(packed), p(packed), _IDB, nt,
+            len(packed), p(packed), idb, nt,
             p(lo), p(hi), p(wk), i8(o), i8(su), i8(sv),
         )
     )
@@ -381,12 +372,13 @@ def _dedup_unpack_native(packed: np.ndarray):
     return lo, hi, wk, o, su, sv
 
 
-def _collapse_candidates_packed(g, cols, ids_start, ids_count, n_ids, owned):
+def _collapse_candidates_packed(g, cols, ids_start, ids_count, idb, owned):
     """Value-sort collapse: each expanded row packs into ONE int64
-    ``lo<<33 | hi<<10 | w<<3 | o<<2 | su<<1 | sv`` (56 bits), sorted by
-    VALUE — no index permutation, no post-sort gathers, and roughly half
-    the full-length temporaries of the argsort path (the cold collapse is
-    bound by first-touch faults).
+    ``lo<<(idb+10) | hi<<10 | w<<3 | o<<2 | su<<1 | sv`` (``2*idb + 10``
+    bits: 56 at 23-bit ids, 62 at 26), sorted by VALUE — no index
+    permutation, no post-sort gathers, and roughly half the full-length
+    temporaries of the argsort path (the cold collapse is bound by
+    first-touch faults).
 
     The three orientation bits recover the concrete edge after dedup —
     matching ids are shared by a binode and its mirror, so (lo, hi)
@@ -403,26 +395,13 @@ def _collapse_candidates_packed(g, cols, ids_start, ids_count, n_ids, owned):
     is_canon = np.arange(g.n_nodes, dtype=np.int64) <= mirror
 
     with span("collapse.expand") as sp:
-        packed = _expand_pack_native(g, *cols, ids_start, ids_count, is_canon)
+        packed = _expand_pack_native(*cols, ids_start, ids_count, is_canon, idb)
         if packed is None:
-            # the numpy expansion: the same sorted rows (the tests select
-            # it in place of the native pass and hold it to the JAX package)
-            a, b, wrow, su, sv = _expand_candidate_ids(
-                *cols, ids_start, ids_count,
-                extras=(is_canon[cols[0]], is_canon[cols[1]]),
-            )
-            o = a <= b
-            packed = np.empty(len(a), dtype=np.int64)
-            np.left_shift(np.where(o, a, b), _IDB + 10, out=packed)
-            packed |= np.where(o, b, a) << 10
-            packed |= wrow << 3
-            packed |= o.astype(np.int64) << 2
-            packed |= su.astype(np.int64) << 1
-            packed |= sv.astype(np.int64)
-            packed.sort()
+            # the tests select the numpy packing in place of the native pass
+            packed = _expand_pack_numpy(*cols, ids_start, ids_count, is_canon, idb)
         cols.clear()
         owned.own(packed)
-        sp.add(rows=len(packed))
+        sp.add(rows=len(packed), id_bits=idb)
     # canonical node per id: canonical class reps ascending own the
     # consecutive id ranges (ids_start is a cumsum over them).  Computed
     # before dedup so the fused native pass can resolve (ur, vr) during
@@ -432,18 +411,37 @@ def _collapse_candidates_packed(g, cols, ids_start, ids_count, n_ids, owned):
     with span("collapse.dedup") as sp:
         canon_nodes = np.flatnonzero((ids_count > 0) & is_canon)
         node_of_id = np.repeat(canon_nodes, ids_count[canon_nodes])
-        res5 = _dedup_resolve_native(packed, node_of_id, mirror)
+        res5 = _dedup_resolve_native(packed, node_of_id, mirror, idb)
         if res5 is None:
-            res5 = _dedup_unpack_resolve(packed, node_of_id, mirror)
+            res5 = _dedup_unpack_resolve(packed, node_of_id, mirror, idb)
         del packed
         sp.add(pairs=len(res5[0]), released_bytes=owned.freed())
     return res5
 
 
-def _dedup_unpack_resolve(packed, node_of_id, mirror):
+def _expand_pack_numpy(u, v, w, ids_start, ids_count, is_canon, idb):
+    """The numpy expansion and packing: the rows of
+    ``_expand_pack_native``, sorted the same."""
+    a, b, wrow, su, sv = _expand_candidate_ids(
+        u, v, w, ids_start, ids_count, extras=(is_canon[u], is_canon[v])
+    )
+    o = a <= b
+    packed = np.empty(len(a), dtype=np.int64)
+    np.left_shift(np.where(o, a, b), idb + 10, out=packed)
+    packed |= np.where(o, b, a) << 10
+    packed |= wrow << 3
+    packed |= o.astype(np.int64) << 2
+    packed |= su.astype(np.int64) << 1
+    packed |= sv.astype(np.int64)
+    packed.sort()
+    return packed
+
+
+def _dedup_unpack_resolve(packed, node_of_id, mirror, idb):
     """Below the fused native dedup's payoff: dedup and unpack (native,
-    else numpy), then the numpy gathers resolving each pair's nodes."""
-    res = _dedup_unpack_native(packed)
+    else numpy) of rows with ``idb``-bit ids, then the numpy gathers
+    resolving each pair's nodes."""
+    res = _dedup_unpack_native(packed, idb)
     if res is not None:
         lo, hi, wk, o, su, sv = res
     else:  # below the thread-spawn payoff
@@ -453,8 +451,8 @@ def _dedup_unpack_resolve(packed, node_of_id, mirror):
             first[0] = True
             np.not_equal(key[1:], key[:-1], out=first[1:])
         vals = packed[first]
-        lo = vals >> (_IDB + 10)
-        hi = (vals >> 10) & _ID_MASK
+        lo = vals >> (idb + 10)
+        hi = (vals >> 10) & ((1 << idb) - 1)
         keep = lo != hi  # same-id self-loops only from mirror biedges
         vals, lo, hi = vals[keep], lo[keep], hi[keep]
         wk = (vals >> 3) & 127

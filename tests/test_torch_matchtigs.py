@@ -80,27 +80,31 @@ def test_dense_limit_identical_to_jax(dense_limit):
     assert np.array_equal(got.offsets, want.offsets)
 
 
-@pytest.mark.parametrize("path", ["packed", "packed-numpy", "argsort"])
+@pytest.mark.parametrize(
+    "path", ["packed", "packed-numpy", "argsort", "packed24", "packed24-numpy"])
 @pytest.mark.parametrize("name", ["k7", "golden-pangenome"])
 def test_collapse_candidates_identical_to_jax(monkeypatch, name, path):
     """_collapse_candidates on the same candidates: the packed value-sort
-    path (native, and its numpy fallback) and the argsort path (taken when
-    the id count reaches 2^23), the latter against the JAX package's packed
-    path at the true id count: its own argsort path keeps the first
-    minimum-weight row in candidate order (F7), which the port repairs."""
+    path (native, and its numpy packing), also at 24-bit ids (the id count
+    given as 2^23 + 1), and the argsort path (taken past 2^26 ids), all
+    against the JAX package's packed path at the true id count: its own
+    argsort path keeps the first minimum-weight row in candidate order
+    (F7), which the port repairs."""
     jg, tg, _, _, k = _graphs(name)
     out_nodes, in_mask, _ = unbalanced_nodes(tg)
     cands = collect_candidates(tg, out_nodes, in_mask, k, GreedytigConfig(k=k, engine="host"))
     ids_start, ids_count, n_ids, _, _ = t_matchtigs._matching_node_ids(tg, tg.imbalances())
     assert n_ids and len(cands)
-    if path == "packed-numpy":
+    if path.endswith("-numpy"):
         for mod in (j_matchtigs, t_matchtigs):
             monkeypatch.setattr(mod, "_expand_pack_native", lambda *a: None)
             monkeypatch.setattr(mod, "_dedup_resolve_native", lambda *a: None)
             monkeypatch.setattr(mod, "_dedup_unpack_native", lambda *a: None)
     want = j_matchtigs._collapse_candidates(jg, cands, ids_start, ids_count, n_ids)
     if path == "argsort":
-        n_ids = 1 << 23
+        n_ids = (1 << 26) + 1
+    elif path.startswith("packed24"):
+        n_ids = (1 << 23) + 1
     # the port's collapse empties the candidates it is given: it gets a copy
     copy = Candidates(cands.u.copy(), cands.v.copy(), cands.d.copy())
     got = t_matchtigs._collapse_candidates(tg, copy, ids_start, ids_count, n_ids)

@@ -1,16 +1,18 @@
 """Optimal matchtigs where the instance passes the widths of its small
 layouts, at small sizes.
 
-From 2^23 matching ids the candidate collapse leaves the packed value
-sort (23-bit ids) for the argsort route; past 2^24 nodes the search stage
-leaves the packed rows and adjacency for the wide kernel over the unpacked
-``(nbr, nw)`` pair.  Here both are forced on small graphs: the argsort
-route by raising the id count it is given to 2^23 (which leaves the pair
-keys' order unchanged), the layouts by the predicates of
-``tests/test_torch_large_graph.py``.  The argsort route keeps, per id
-pair, the same row as the packed route whatever the candidates' order, so
-the device and host engines spell the same matchtigs there, and they are
-the JAX package's (its packed route at the true id count).  All
+Past 2^23 matching ids the candidate collapse packs its rows with wider
+ids (24 to 26 bits), and past 2^26 ids it leaves the packed value sort
+for the argsort route; past 2^24 nodes the search stage leaves the packed
+rows and adjacency for the wide kernel over the unpacked ``(nbr, nw)``
+pair.  Here all are forced on small graphs: the collapse's routes by
+raising the id count it is given (which leaves the pair keys' order
+unchanged), to 2^23 + 1 (24-bit ids) or 2^26 + 1 (the argsort route), the
+layouts by the predicates of ``tests/test_torch_large_graph.py``.  Both
+routes keep, per id pair, the row of the packed route at 23-bit ids
+whatever the candidates' order, so the device and host engines spell the
+same matchtigs there, and they are the JAX package's (its packed route at
+the true id count).  All
 comparisons are exact; the device engine runs the kernels' plain versions
 (``device="cpu"``)."""
 
@@ -36,7 +38,12 @@ from matchtigs_tpu_torch.ops import sssp as tsssp
 from matchtigs_tpu_torch.ops.candidates import Candidates
 from matchtigs_tpu_torch.ops.matching import unbalanced_nodes
 
-ARGSORT_IDS = 1 << 23  # the id count from which the collapse takes the argsort route
+# the first id count whose collapse takes the argsort route: its ids need
+# 27 bits, and a packed row of 2 * 27 + 10 bits does not fit an int64
+ARGSORT_IDS = (1 << 26) + 1
+# the first id count whose packed rows need 24-bit ids (ids 0 .. 2^23 - 1
+# fit 23 bits)
+PACKED24_IDS = (1 << 23) + 1
 GRAPHS = {
     "k7": ("unitig", dict(genome_length=2500, k=7, seed=2)),
     "k11": ("unitig", dict(genome_length=8000, k=11, seed=1)),
@@ -111,11 +118,24 @@ def _in_order(name, order):
 def test_argsort_collapse_equals_jax_packed(name, order, weight_shift):
     """The port's argsort route on candidates in any order: the five
     columns of the JAX package's packed route at the true id count.  With
-    every weight raised by 128 (as past k = 128) the route sorts by two
-    keys instead of one, and only the weights move."""
+    every weight raised by 128 (as past k = 128) the argsort route is
+    taken at any id count, and only the weights move."""
+    _collapse_equals_jax_packed(name, order, weight_shift, ARGSORT_IDS)
+
+
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("name", list(GRAPHS))
+def test_packed24_collapse_equals_jax_packed(name, order):
+    """The port's packed route at 24-bit ids on candidates in any order:
+    the five columns of the JAX package's packed route at the true id
+    count."""
+    _collapse_equals_jax_packed(name, order, 0, PACKED24_IDS)
+
+
+def _collapse_equals_jax_packed(name, order, weight_shift, n_ids_given):
     jg, tg, _, _, _ = _graphs(name)
     ids_start, ids_count, n_ids, _, _ = t_matchtigs._matching_node_ids(tg, tg.imbalances())
-    assert 0 < n_ids < ARGSORT_IDS
+    assert 0 < n_ids < PACKED24_IDS
     host = _candidates(name, "host")
     cands = _in_order(name, order)
     # the same candidate set, in another order unless listed by the host
@@ -124,20 +144,21 @@ def test_argsort_collapse_equals_jax_packed(name, order, weight_shift):
     want[2] = want[2] + weight_shift
     # the port's collapse empties the candidates it is given: it gets a copy
     cands = Candidates(cands.u.copy(), cands.v.copy(), cands.d + weight_shift)
-    got = t_matchtigs._collapse_candidates(tg, cands, ids_start, ids_count, ARGSORT_IDS)
+    got = t_matchtigs._collapse_candidates(tg, cands, ids_start, ids_count, n_ids_given)
     assert len(got[0]) > 0
     for column, g_col, w_col in zip(("lo", "hi", "w", "u", "v"), got, want):
         assert np.array_equal(g_col, w_col), column
 
 
-def _force_argsort_collapse(monkeypatch):
-    """The port's collapse as an instance of 2^23 ids or more takes it:
-    the argsort route, keys in the order of the true id count."""
+def _force_collapse_ids(monkeypatch, at_least):
+    """The port's collapse as an instance of ``at_least`` ids takes it:
+    the argsort route at ``ARGSORT_IDS``, the packed route at 24-bit ids
+    at ``PACKED24_IDS``; keys in the order of the true id count."""
     collapse = t_matchtigs._collapse_candidates
 
-    def argsort_route(g, candidates, ids_start, ids_count, n_ids):
-        return collapse(g, candidates, ids_start, ids_count, max(n_ids, ARGSORT_IDS))
-    monkeypatch.setattr(t_matchtigs, "_collapse_candidates", argsort_route)
+    def wider(g, candidates, ids_start, ids_count, n_ids):
+        return collapse(g, candidates, ids_start, ids_count, max(n_ids, at_least))
+    monkeypatch.setattr(t_matchtigs, "_collapse_candidates", wider)
 
 
 @functools.lru_cache(maxsize=None)
@@ -158,8 +179,20 @@ def test_forced_argsort_engines_identical_to_jax(monkeypatch, tmp_path, name, en
     """Optimal matchtigs with the port's collapse on the argsort route:
     the walks and matching files of either engine are the JAX package's
     from its packed route, byte for byte."""
+    _engines_identical_to_jax(monkeypatch, tmp_path, name, engine, ARGSORT_IDS)
+
+
+@pytest.mark.parametrize("engine", ["device", "host"])
+@pytest.mark.parametrize("name", ["golden-pangenome", "pangenome-k31"])
+def test_forced_packed24_engines_identical_to_jax(monkeypatch, tmp_path, name, engine):
+    """The same with the port's collapse on the packed route at 24-bit
+    ids."""
+    _engines_identical_to_jax(monkeypatch, tmp_path, name, engine, PACKED24_IDS)
+
+
+def _engines_identical_to_jax(monkeypatch, tmp_path, name, engine, at_least):
     want, want_files = _jax_run(name)
-    _force_argsort_collapse(monkeypatch)
+    _force_collapse_ids(monkeypatch, at_least)
     _, tg, tstore, kmers, k = _graphs(name)
     prefix = tmp_path / "instance"
     got = t_matchtigs.compute_matchtigs(tg, TConfig(
@@ -171,19 +204,20 @@ def test_forced_argsort_engines_identical_to_jax(monkeypatch, tmp_path, name, en
     ttesting.assert_tigs_spell_kmer_set(tg, got, tstore, k, kmers, allow_duplicates=True)
 
 
-@pytest.mark.parametrize("collapse", ["own-route", "argsort"])
+@pytest.mark.parametrize("collapse", ["own-route", "argsort", "packed24"])
 @pytest.mark.parametrize("layout", ["unpacked", "mixed"])
 def test_matchtigs_past_2_24_identical_to_jax(monkeypatch, layout, collapse):
     """Optimal matchtigs on the device engine with the layout of a graph
     past 2^24 nodes (and, as there, the argsort collapse): the wide
     kernel's path and the unpacked extraction, walks equal to the JAX
-    package's under the same layout and to the port's own packed run."""
+    package's under the same layout and to the port's own packed run; also
+    with the collapse's packed route at 24-bit ids."""
     jg, tg, tstore, kmers, k = _graphs("pangenome-k31")
     packed = t_matchtigs.compute_matchtigs(tg.copy(), TConfig(k=k, engine="device",
                                                               device="cpu"))
     _force_node_count_layout(monkeypatch, layout)
-    if collapse == "argsort":
-        _force_argsort_collapse(monkeypatch)
+    if collapse != "own-route":
+        _force_collapse_ids(monkeypatch, dict(argsort=ARGSORT_IDS, packed24=PACKED24_IDS)[collapse])
     calls = _count_calls(monkeypatch, tsssp, ("pool_sssp", "wide_sssp",
                                               "extract_packed_candidates",
                                               "extract_unpacked_candidates"))

@@ -6,9 +6,10 @@ the expansion has read them; each collapse route drops its expanded rows
 as its dedup reads them.  ``_allocate_and_match`` drops its bucketing
 scratch and the bucketed edge rows at their last read, and solves the
 batch over the dedup's own columns.  Here, on the golden pangenome graph
-and on both collapse routes (packed, and argsort as past 2^23 ids): that
-nothing of the candidate set is alive when ``matchtigs.collapse`` closes,
-the ``released_bytes`` counters of ``collapse.dedup`` and
+and on both collapse routes (packed, at 23-bit ids and at 24-bit ids as
+past 2^23 ids, and argsort as past 2^26 ids): that nothing of the
+candidate set is alive when ``matchtigs.collapse`` closes, the
+``released_bytes`` counters of ``collapse.dedup`` and
 ``match.batch.dedup``, and that the walks and the matching files stay the
 JAX package's, with and without components that solve deletion variants
 beside the batch."""
@@ -22,7 +23,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
-from test_torch_matchtigs_large import _force_argsort_collapse
+from test_torch_matchtigs_large import ARGSORT_IDS, PACKED24_IDS, _force_collapse_ids
 
 from matchtigs_tpu import testing as jtesting
 from matchtigs_tpu.algos import matchtigs as j_matchtigs
@@ -49,7 +50,9 @@ GRAPHS = {
     # component solves deletion variants on the solo path
     "deletion-variants": ("unitig", dict(genome_length=1764, k=7, seed=12)),
 }
-ROUTES = ("packed", "argsort")
+ROUTES = ("packed", "argsort", "packed24")
+# the id count each route is forced with (the packed route: none)
+ROUTE_IDS = dict(packed=0, argsort=ARGSORT_IDS, packed24=PACKED24_IDS)
 SUFFIXES = (".matching", ".matching.solution")
 
 
@@ -109,8 +112,8 @@ def native_buffers(monkeypatch):
 
 
 def _route(monkeypatch, route):
-    if route == "argsort":
-        _force_argsort_collapse(monkeypatch)
+    if route != "packed":
+        _force_collapse_ids(monkeypatch, ROUTE_IDS[route])
 
 
 @pytest.mark.parametrize("engine", ["device", "host"])
@@ -181,7 +184,7 @@ def test_collapse_empties_the_candidates_it_is_given(route):
     copy = Candidates(cands.u.copy(), cands.v.copy(), cands.d.copy())
     ids_start, ids_count, n_ids, _, _ = t_matchtigs._matching_node_ids(tg, tg.imbalances())
     want = j_matchtigs._collapse_candidates(jg, copy, ids_start, ids_count, n_ids)
-    n_ids_route = n_ids if route == "packed" else max(n_ids, 1 << 23)
+    n_ids_route = max(n_ids, ROUTE_IDS[route])
     got = t_matchtigs._collapse_candidates(tg, cands, ids_start, ids_count, n_ids_route)
     assert len(cands) == 0 and len(cands.v) == 0 and len(cands.d) == 0 and len(copy) > 0
     for g_col, w_col in zip(got, want):
