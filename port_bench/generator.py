@@ -1,13 +1,14 @@
 """The benchmark's traffic generator: a synthetic pangenome's unitigs.
 
 A frozen copy of ``matchtigs_tpu_torch.testing.make_pangenome_store``'s
-device path for k <= 31 (one 64-bit word per k-mer), so that a change to
-the program cannot change what the benchmark feeds it.  The genomes are
-drawn by numpy on the host from the seed; the k-mer sets and the maximal
-unitigs are built with torch on the given device.  The output is the flat
-unitig arena (codes uint8 in 0..3, base offsets int64 with a leading 0)
-and the sorted canonical k-mer set, bit-identical to the program's
-generator at the same parameters.
+device path for k <= 63: one 64-bit word per k-mer for k <= 31, two
+(hi, lo) words for 31 < k <= 63, so that a change to the program cannot
+change what the benchmark feeds it.  The genomes are drawn by numpy on
+the host from the seed; the k-mer sets and the maximal unitigs are built
+with torch on the given device.  The output is the flat unitig arena
+(codes uint8 in 0..3, base offsets int64 with a leading 0) and the sorted
+canonical k-mer set, bit-identical to the program's generator at the same
+parameters.
 
 The module imports nothing of the program.
 """
@@ -101,6 +102,16 @@ def pangenome_strains(genome_length: int, n_strains: int, mutation_rate: float,
 
 
 # ------------------------------------------------- k-mer sets and unitigs
+#
+# Packed k-mers are int64 words.  For k <= 31 one word of 62 bits, so int64
+# keeps uint64's order.  For 31 < k <= 63 two words: hi holds the first
+# k - 32 bases (at most 62 bits) and lo the last 32 (all 64 bits), so lo is
+# compared with its bit 63 flipped (``_SIGN``), which makes int64's order
+# uint64's, and masked after each right shift.  Keys cross the API as int64
+# ``[n]`` (k <= 31) or ``[n, 2]`` (hi, lo) tensors, and travel inside as
+# tuples of their words.
+
+_SIGN = -(1 << 63)
 
 # masks that swap ever wider groups of a 64-bit word; each leaves the top
 # bits of its right-shifted half clear, so the sign bits an arithmetic
@@ -115,8 +126,28 @@ _SWAP_MASKS = (
 
 
 def _check_k(k: int) -> None:
-    if not 1 <= k <= 31:
-        raise ValueError(f"the benchmark's generator covers k <= 31, not k={k}")
+    if not 1 <= k <= 63:
+        raise ValueError(f"the benchmark's generator covers k <= 63, not k={k}")
+
+
+def _words(keys: torch.Tensor, k: int) -> tuple:
+    """A key tensor as its words: ``(keys,)`` for k <= 31, ``(hi, lo)`` for
+    31 < k <= 63."""
+    _check_k(k)
+    return (keys,) if k <= 31 else (keys[:, 0].contiguous(), keys[:, 1].contiguous())
+
+
+def _tensor(words: tuple) -> torch.Tensor:
+    return words[0] if len(words) == 1 else torch.stack(words, 1)
+
+
+def _base_slot(b: int, k: int) -> tuple[int, int]:
+    """(word, shift) of base ``b`` of a packed k-mer, first base most
+    significant."""
+    shift = 2 * (k - 1 - b)
+    if k <= 31:
+        return 0, shift
+    return (0, shift - 64) if shift >= 64 else (1, shift)
 
 
 def _reverse_groups(x: torch.Tensor) -> torch.Tensor:
@@ -126,22 +157,92 @@ def _reverse_groups(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _revcomp(keys: torch.Tensor, k: int) -> torch.Tensor:
-    full = (1 << (2 * k)) - 1
-    return (_reverse_groups(keys ^ full) >> (2 * (32 - k))) & full
+def _revcomp_words(words: tuple, k: int) -> tuple:
+    """Reverse complements of packed k-mers: the codes complemented, each
+    word's 32 2-bit groups reversed, then the k codes shifted down."""
+    if len(words) == 1:
+        full = (1 << (2 * k)) - 1
+        return ((_reverse_groups(words[0] ^ full) >> (2 * (32 - k))) & full,)
+    hi, lo = words
+    k_hi = k - 32
+    top = _reverse_groups(~lo)  # the first 32 bases of the reverse complement
+    if k_hi == 0:
+        return torch.zeros_like(top), top
+    mask = (1 << (2 * k_hi)) - 1
+    bottom = _reverse_groups(hi ^ mask)  # its last k - 32, at the word's top
+    shift = 64 - 2 * k_hi
+    return (top >> shift) & mask, ((bottom >> shift) & mask) | (top << (2 * k_hi))
 
 
 def canonical_kmers(codes: torch.Tensor, k: int) -> torch.Tensor:
-    """Canonical packed k-mer of every window of ``codes``, in order."""
+    """Canonical packed k-mer of every window of ``codes``, in order: each
+    window and its reverse complement packed by k shifts."""
     n = max(0, len(codes) - k + 1)
     c = codes.to(torch.int64)
-    fwd = torch.zeros(n, dtype=torch.int64, device=codes.device)
+    shape = (1 if k <= 31 else 2, n)
+    fwd = torch.zeros(shape, dtype=torch.int64, device=codes.device)
     rc = torch.zeros_like(fwd)
     for j in range(k):
         window = c[j:j + n]
-        fwd |= window << (2 * (k - 1 - j))
-        rc |= (3 - window) << (2 * j)
-    return torch.minimum(fwd, rc)
+        word, shift = _base_slot(j, k)
+        fwd[word] |= window << shift
+        word, shift = _base_slot(k - 1 - j, k)
+        rc[word] |= (3 - window) << shift
+    if k <= 31:
+        return torch.minimum(fwd[0], rc[0])
+    take_rc = (rc[0] < fwd[0]) | ((rc[0] == fwd[0]) & ((rc[1] ^ _SIGN) < (fwd[1] ^ _SIGN)))
+    return torch.where(take_rc, rc, fwd).T.contiguous()
+
+
+def _sorted_unique(words: tuple) -> tuple:
+    """The distinct keys in ascending order (lo words as unsigned)."""
+    if len(words) == 1:
+        return (torch.unique(words[0]),)
+    hi, lo = words
+    order = torch.argsort(lo ^ _SIGN, stable=True)
+    order = order[torch.argsort(hi[order], stable=True)]
+    hi, lo = hi[order], lo[order]
+    del order
+    new = torch.ones(len(hi), dtype=torch.bool, device=hi.device)
+    new[1:] = (hi[1:] != hi[:-1]) | (lo[1:] != lo[:-1])
+    return hi[new], lo[new]
+
+
+def sorted_unique_kmers(keys: torch.Tensor, k: int) -> torch.Tensor:
+    """The distinct packed k-mers of ``keys`` (int64 ``[n]`` or ``[n, 2]``)
+    in ascending order (uint64 values, or the big-endian 16-byte keys)."""
+    return _tensor(_sorted_unique(_words(keys, k)))
+
+
+def _search(keys: tuple, queries: tuple, right: bool = False) -> torch.Tensor:
+    """Per query, the index of the first of the sorted unique ``keys`` not
+    below it (or, ``right``, above it).  Two words: the run of keys with
+    the query's hi, then a binary search on lo inside it."""
+    if len(keys) == 1:
+        return torch.searchsorted(keys[0], queries[0], right=right)
+    hi, lo = keys
+    left = torch.searchsorted(hi, queries[0])
+    end = torch.searchsorted(hi, queries[0], right=True)
+    steps = int((end - left).max()).bit_length() if len(left) else 0
+    slo, qlo = lo ^ _SIGN, queries[1] ^ _SIGN
+    for _ in range(steps):
+        live = left < end
+        mid = (left + end) >> 1
+        at = slo[mid.clamp(max=len(slo) - 1)]
+        up = live & ((at <= qlo) if right else (at < qlo))
+        left = torch.where(up, mid + 1, left)
+        end = torch.where(live & ~up, mid, end)
+    return left
+
+
+def _successor_base(words: tuple, k: int) -> tuple:
+    """x's last k - 1 bases followed by A: the least of x's possible
+    successors, which run from it to it | 3."""
+    if len(words) == 1:
+        return ((words[0] << 2) & ((1 << (2 * k)) - 1),)
+    hi, lo = words
+    mask = (1 << (2 * (k - 32))) - 1  # 0 at k = 32: hi holds no base
+    return ((hi << 2) | ((lo >> 62) & 3)) & mask, lo << 2
 
 
 def _list_rank(prv: torch.Tensor):
@@ -167,13 +268,16 @@ def _list_rank(prv: torch.Tensor):
 
 def unitig_codes_from_kmers(kmers: torch.Tensor, k: int):
     """(codes uint8, base offsets int64 with a leading 0) of the maximal
-    unitigs of a sorted canonical k-mer set (int64), on its device: the
-    chains from the starts by start index, then the isolated cycles by
-    their smallest index; the first of each {chain, reverse-complement
-    twin} pair kept, in its lexicographically smaller orientation."""
+    unitigs of a sorted canonical k-mer set (int64 ``[n]`` for k <= 31,
+    ``[n, 2]`` (hi, lo) above), on its device: the chains from the starts
+    by start index, then the isolated cycles by their smallest index; the
+    first of each {chain, reverse-complement twin} pair kept, in its
+    lexicographically smaller orientation."""
+    words = _words(kmers, k)
     dev = kmers.device
-    oriented = torch.unique(torch.cat([kmers, _revcomp(kmers, k)]))
-    n = len(oriented)
+    oriented = _sorted_unique(tuple(torch.cat(w) for w in zip(words, _revcomp_words(words, k))))
+    del words
+    n = len(oriented[0])
     if n >= 1 << 30:
         raise ValueError(f"{n} oriented k-mers exceed the chain key's 2^30")
     if n == 0:
@@ -182,13 +286,14 @@ def unitig_codes_from_kmers(kmers: torch.Tensor, k: int):
 
     # The successors of x are the set's keys from base to base | 3, base =
     # x's last k-1 bases followed by A; in_deg(x) = out_deg(rc(x)).
-    base = (oriented << 2) & ((1 << (2 * k)) - 1)
-    first_succ = torch.searchsorted(oriented, base)
-    out_deg = torch.searchsorted(oriented, base | 3, right=True) - first_succ
+    base = _successor_base(oriented, k)
+    first_succ = _search(oriented, base)
+    out_deg = _search(oriented, (*base[:-1], base[-1] | 3), right=True) - first_succ
     del base
-    rc_vals = _revcomp(oriented, k)
-    rc_idx = torch.searchsorted(oriented, rc_vals)
-    if not torch.equal(oriented[rc_idx.clamp(max=n - 1)], rc_vals):
+    rc_vals = _revcomp_words(oriented, k)
+    rc_idx = _search(oriented, rc_vals)
+    found = (w[rc_idx.clamp(max=n - 1)] for w in oriented)
+    if not all(torch.equal(a, b) for a, b in zip(found, rc_vals)):
         raise RuntimeError("the oriented k-mer set is not closed under reverse complement")
     del rc_vals
     in_deg = out_deg[rc_idx]
@@ -239,7 +344,12 @@ def unitig_codes_from_kmers(kmers: torch.Tensor, k: int):
     start = kept_start[seq]
     node = order[start + (pos - (k - 1)).clamp(min=0)]
     shift = (2 * (k - 1 - pos)).clamp(min=0)
-    fwd = ((oriented[node] >> shift) & 3).to(torch.uint8)
+    # each in one expression, so that no int64 column outlives its last use
+    if len(oriented) == 1:
+        fwd = ((oriented[0][node] >> shift) & 3).to(torch.uint8)
+    else:  # the head k-mer's first k - 32 bases lie in hi
+        fwd = (torch.where(shift >= 64, oriented[0][node] >> (shift - 64).clamp(min=0),
+                           oriented[1][node] >> shift.clamp(max=62)) & 3).to(torch.uint8)
     del node, shift, start, order, oriented
     bwd = 3 - fwd[offsets[seq] + lengths[seq] - 1 - pos]
     del pos
@@ -256,16 +366,17 @@ def unitig_codes_from_kmers(kmers: torch.Tensor, k: int):
 def make_pangenome(genome_length: int, k: int, n_strains: int, mutation_rate: float,
                    seed: int, with_repeats: bool, device):
     """(codes uint8, offsets int64) as numpy arrays and the k-mers as an
-    int64 tensor on ``device`` (``kmers_numpy`` gives numpy's uint64): the
+    int64 tensor on ``device``, ``[n]`` for k <= 31 and ``[n, 2]`` (hi, lo)
+    above (``kmers_numpy`` gives numpy's uint64 or 16-byte keys): the
     pangenome's unitigs and its merged canonical k-mer set, built on
     ``device``."""
     _check_k(k)
     device = torch.device(device)
-    parts = [torch.unique(canonical_kmers(
-        torch.from_numpy(np.ascontiguousarray(s)).to(device), k))
+    parts = [sorted_unique_kmers(canonical_kmers(
+        torch.from_numpy(np.ascontiguousarray(s)).to(device), k), k)
         for s in pangenome_strains(genome_length, n_strains, mutation_rate, seed,
                                    with_repeats)]
-    kmers = torch.unique(torch.cat(parts))
+    kmers = sorted_unique_kmers(torch.cat(parts), k)
     del parts
     codes, offsets = unitig_codes_from_kmers(kmers, k)
     return codes.cpu().numpy(), offsets.cpu().numpy(), kmers
@@ -295,7 +406,14 @@ def shuffle_unitigs(codes: np.ndarray, offsets: np.ndarray, seed: int, device):
 
 
 def kmers_numpy(kmers: torch.Tensor) -> np.ndarray:
-    return kmers.cpu().numpy().view(np.uint64)
+    """The k-mers as numpy's uint64, or for two words as 16-byte keys, hi
+    then lo, each big-endian, whose byte order is the keys' order."""
+    a = kmers.cpu().numpy().view(np.uint64)
+    if a.ndim == 1:
+        return a
+    pairs = np.empty(len(a), dtype=[("h", ">u8"), ("l", ">u8")])
+    pairs["h"], pairs["l"] = a[:, 0], a[:, 1]
+    return pairs.view("V16").reshape(-1)
 
 
 # ---------------------------------------------------------------- outputs
@@ -348,8 +466,10 @@ def write_fasta(path: Path, codes: np.ndarray, offsets: np.ndarray) -> int:
 
 def dataset_digest(codes: np.ndarray, offsets: np.ndarray, kmers: np.ndarray) -> str:
     """sha256 over a dataset's codes (uint8), base offsets (int64) and
-    k-mers (uint64), in that order."""
+    k-mers (uint64, or the 16 bytes of each two-word key), in that order."""
     h = hashlib.sha256()
-    for a, dtype in ((codes, np.uint8), (offsets, np.int64), (kmers, np.uint64)):
+    two_words = kmers.dtype == np.dtype("V16")
+    for a, dtype in ((codes, np.uint8), (offsets, np.int64),
+                     (kmers, kmers.dtype if two_words else np.uint64)):
         h.update(np.ascontiguousarray(a, dtype=dtype))
     return h.hexdigest()

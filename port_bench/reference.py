@@ -12,7 +12,10 @@ unitigs cost: their count (``tig_ratio``) and their characters
 finds fewer joins writes more tigs and more characters.
 
 Plain numpy and torch; it imports nothing of the program, and runs on
-whatever device it is given, in blocks of bases.
+whatever device it is given, in blocks of bases.  A k-mer of k <= 31 is
+one int64 word; one of 31 < k <= 63 is two, hi holding its first k - 32
+bases and lo its last 32, and a set of them an int64 ``[n, 2]`` tensor in
+the order of the unsigned 128-bit key.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ for _i, _c in enumerate(b"ACGT"):
     _CODE[_c] = _i
     _CODE[_c + 32] = _i  # lower case
 BLOCK = 1 << 27  # k-mer windows per block on the device
+_SIGN = -(1 << 63)  # lo ^ _SIGN orders int64 words as unsigned ones
 
 
 def read_fasta(path) -> tuple[np.ndarray, np.ndarray]:
@@ -62,13 +66,14 @@ def read_fasta(path) -> tuple[np.ndarray, np.ndarray]:
 
 def kmer_set(codes: np.ndarray, offsets: np.ndarray, k: int, device) -> tuple:
     """(sorted unique canonical k-mers as an int64 tensor on ``device``,
-    malformed records): every window of k bases inside one record, packed
-    two bits a base, first base most significant, the smaller of it and
-    its reverse complement.  A window over a byte other than ACGT is left
-    out, and its record counted malformed, as is a record shorter than
-    k."""
-    if not 1 <= k <= 31:
-        raise ValueError(f"the reference packs k <= 31 into one word, not k={k}")
+    ``[n]`` for k <= 31 and ``[n, 2]`` above, malformed records): every
+    window of k bases inside one record, packed two bits a base, first
+    base most significant, the smaller of it and its reverse complement.
+    A window over a byte other than ACGT is left out, and its record
+    counted malformed, as is a record shorter than k."""
+    if not 1 <= k <= 63:
+        raise ValueError(f"the reference packs k <= 63 into two words, not k={k}")
+    words = 1 if k <= 31 else 2
     lengths = np.diff(offsets)
     bad_rec = np.zeros(len(lengths), bool)
     bad_rec |= lengths < k
@@ -76,41 +81,88 @@ def kmer_set(codes: np.ndarray, offsets: np.ndarray, k: int, device) -> tuple:
     off = torch.from_numpy(offsets).to(device)
     parts = []
     total = len(codes)
-    for lo in range(0, max(total - k + 1, 0), BLOCK):
-        hi = min(lo + BLOCK, total - k + 1)
-        c = codes_t[lo:hi + k - 1].to(device, torch.int64)
-        n = hi - lo
-        start = torch.arange(lo, hi, device=device)
+    for first in range(0, max(total - k + 1, 0), BLOCK):
+        end = min(first + BLOCK, total - k + 1)
+        c = codes_t[first:end + k - 1].to(device, torch.int64)
+        n = end - first
+        start = torch.arange(first, end, device=device)
         rec = torch.searchsorted(off, start, right=True) - 1
         inside = start + k <= off[rec + 1]
-        fwd = torch.zeros(n, dtype=torch.int64, device=device)
+        fwd = torch.zeros((words, n), dtype=torch.int64, device=device)  # (hi,) lo
         rc = torch.zeros_like(fwd)
         bad = torch.zeros(n, dtype=torch.bool, device=device)
         for j in range(k):
             w = c[j:j + n]
             bad |= w > 3
             w = w & 3
-            fwd |= w << (2 * (k - 1 - j))
-            rc |= (3 - w) << (2 * j)
+            f, r = 2 * (k - 1 - j), 2 * j  # the base's bit in each strand's key
+            fwd[words - 1 - f // 64] |= w << (f % 64)
+            rc[words - 1 - r // 64] |= (3 - w) << (r % 64)
         del c
         bad_inside = bad & inside
         if bool(bad_inside.any()):
             bad_rec[np.unique(rec[bad_inside].cpu().numpy())] = True
         keep = inside & ~bad
-        parts.append(torch.unique(torch.minimum(fwd, rc)[keep]))
-        del fwd, rc, bad, keep, start, rec, inside
-    kmers = torch.unique(torch.cat(parts)) if parts else torch.empty(
-        0, dtype=torch.int64, device=device)
-    return kmers, int(bad_rec.sum())
+        del bad, start, rec, inside, bad_inside
+        canon = torch.where(_below(rc, fwd), rc, fwd)[:, keep]
+        del fwd, rc, keep
+        parts.append(_unique(canon.T))
+        del canon
+    kmers = torch.cat(parts) if parts else torch.empty(
+        (0, words), dtype=torch.int64, device=device)
+    del parts
+    kmers = _unique(kmers)
+    return (kmers[:, 0] if words == 1 else kmers), int(bad_rec.sum())
+
+
+def _below(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per column, whether key ``a`` lies below key ``b`` (``[words, n]``,
+    lo as unsigned)."""
+    if len(a) == 1:
+        return a[0] < b[0]
+    return (a[0] < b[0]) | ((a[0] == b[0]) & ((a[1] ^ _SIGN) < (b[1] ^ _SIGN)))
+
+
+def _unique(keys: torch.Tensor) -> torch.Tensor:
+    """The distinct rows of ``[n, words]`` keys in ascending order; two
+    words by a stable sort on lo, then one on hi."""
+    if keys.shape[1] == 1:
+        return torch.unique(keys[:, 0])[:, None]
+    order = torch.argsort(keys[:, 1] ^ _SIGN, stable=True)
+    order = order[torch.argsort(keys[:, 0][order], stable=True)]
+    keys = keys[order]
+    del order
+    new = torch.ones(len(keys), dtype=torch.bool, device=keys.device)
+    new[1:] = (keys[1:] != keys[:-1]).any(1)
+    return keys[new]
 
 
 def compare(want: torch.Tensor, got: torch.Tensor) -> tuple[int, int]:
     """(missing, foreign): the keys of ``want`` not in ``got``, and of
-    ``got`` not in ``want``; both sorted and unique."""
+    ``got`` not in ``want``; both sorted and unique.  Each key of ``got``
+    is looked up in ``want``; two words by the run of ``want``'s keys with
+    its hi, then a binary search on lo inside that run, in blocks of
+    keys."""
     if len(want) == 0:
         return 0, len(got)
-    at = torch.searchsorted(want, got).clamp(max=len(want) - 1)
-    common = int((want[at] == got).sum())
+    if want.dim() == 1:
+        at = torch.searchsorted(want, got).clamp(max=len(want) - 1)
+        common = int((want[at] == got).sum())
+        return len(want) - common, len(got) - common
+    hi, lo = want[:, 0].contiguous(), want[:, 1] ^ _SIGN
+    common = 0
+    for first in range(0, len(got), BLOCK):
+        q_hi, q_lo = got[first:first + BLOCK, 0].contiguous(), got[first:first + BLOCK, 1] ^ _SIGN
+        left = torch.searchsorted(hi, q_hi)
+        end = torch.searchsorted(hi, q_hi, right=True)
+        for _ in range(int((end - left).max()).bit_length()):
+            live = left < end
+            mid = (left + end) >> 1
+            up = live & (lo[mid.clamp(max=len(lo) - 1)] < q_lo)
+            left = torch.where(up, mid + 1, left)
+            end = torch.where(live & ~up, mid, end)
+        at = left.clamp(max=len(lo) - 1)
+        common += int(((left < len(lo)) & (hi[at] == q_hi) & (lo[at] == q_lo)).sum())
     return len(want) - common, len(got) - common
 
 

@@ -20,12 +20,17 @@ def one_thread():
     (20_000, 31, 3, False, 2**31 + 7),
     (8_000, 15, 4, True, 5),
     (3_000, 7, 2, False, 1),
+    (30_000, 63, 7, True, 0),
+    (20_000, 32, 3, False, 2**31 + 7),
+    (8_000, 47, 4, True, 5),
+    (3_000, 33, 2, False, 1),
 ])
 def test_bit_identical_to_the_port_generator(genome_length, k, n_strains, with_repeats, seed):
     from matchtigs_tpu_torch import testing
 
     codes, offsets, kmers = generator.make_pangenome(
         genome_length, k, n_strains, 0.01, seed, with_repeats, "cpu")
+    assert kmers.shape == ((len(kmers),) if k <= 31 else (len(kmers), 2))
     kmers = generator.kmers_numpy(kmers)
     store, want_kmers, _ = testing.make_pangenome_store(
         genome_length=genome_length, k=k, n_strains=n_strains, mutation_rate=0.01,
@@ -33,7 +38,7 @@ def test_bit_identical_to_the_port_generator(genome_length, k, n_strains, with_r
     np.testing.assert_array_equal(codes, store.codes)
     np.testing.assert_array_equal(offsets, store.offsets)
     np.testing.assert_array_equal(kmers, want_kmers)
-    assert kmers.dtype == np.uint64
+    assert kmers.dtype == want_kmers.dtype == (np.uint64 if k <= 31 else np.dtype("V16"))
 
 
 def test_digest_is_the_smokes():
@@ -68,9 +73,12 @@ def test_fasta_reads_back(tmp_path):
     np.testing.assert_array_equal(got_offsets, offsets)
 
 
-def test_k_above_31_is_refused():
+def test_k_above_63_is_refused():
+    codes, offsets, _ = generator.make_pangenome(1_000, 63, 2, 0.01, 0, False, "cpu")
     with pytest.raises(ValueError):
-        generator.make_pangenome(1_000, 33, 2, 0.01, 0, False, "cpu")
+        generator.make_pangenome(1_000, 64, 2, 0.01, 0, False, "cpu")
+    with pytest.raises(ValueError):
+        reference.kmer_set(codes, offsets, 64, "cpu")
 
 
 def test_a_seed_reorders_and_flips_the_same_unitigs():

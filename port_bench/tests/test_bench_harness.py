@@ -58,7 +58,10 @@ def test_a_traced_run_loads_neither_jax_nor_the_jax_package():
                          timeout=300, cwd=ROOT, check=True)
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == dict(correct=True, forbidden=[], port=True,
-                       metrics=["cli_unitigs_per_s", "device_stage_s", "join_s", "load_s",
+                       metrics=["cli_unitigs_per_s", "device_stage_s", "extract_s",
+                                "graph_build_s", "host_routed_s", "host_searched_share",
+                                "join_s", "load_s", "overflow_tail_s", "parse_s",
+                                "records_s", "search_prep_s", "spell_s", "untraced_share",
                                 "write_s"])
 
 
@@ -84,7 +87,8 @@ def test_the_reference_loads_nothing_of_the_program():
 def test_a_new_mix_and_log_lap_metric_are_data(tmp_path):
     """A cell, a mix and a per-layer metric of an existing kind added as
     files and entries in a copy, with no file edited: the harness finds
-    and reads them."""
+    and reads them.  The new cell is a greedy one, so it is added to the
+    list of cells of ``join_s``, which the optimal front does not log."""
     bench = tmp_path / "port_bench"
     for sub in ("configs", "mixes", "metrics", "limits"):
         (bench / sub).mkdir(parents=True)
@@ -104,6 +108,8 @@ def test_a_new_mix_and_log_lap_metric_are_data(tmp_path):
     bm["workloads"].append(dict(name="pangenome60m_k31.greedy_fasta_c16",
                                 config="pangenome60m_k31", traffic="greedy_fasta_c16",
                                 chips=1, why="capacity 16"))
+    next(m for m in bm["per_layer"] if m["name"] == "join_s")["workloads"].append(
+        "pangenome60m_k31.greedy_fasta_c16")
     bm["per_layer"].append(dict(name="accept_s", unit="s", better="lower",
                                 source="program_span", layer="greedy accept",
                                 moves="peak_host_gib",
