@@ -385,6 +385,8 @@ def collect_candidates(
                 routed = _host_routed(search_on_host, hard_sources, mesh, chunks)
                 hard_sources = None
             tri, over = handle.fetch_candidates(dg, pending, in_mask)
+            n_overflow = int(over.sum())
+            stage.add(overflowed=n_overflow)
             kernel_s = handle.kernel_seconds()
             stage.lap(
                 logger, "Device stage: %d sources at capacity %d in %.2fs (kernel %s)",
@@ -394,7 +396,6 @@ def collect_candidates(
         stats.stage_times.append(stage.seconds)
         if kernel_s is not None:
             stats.stage_kernel_times.append(kernel_s)
-        n_overflow = int(over.sum())
         stats.stage_overflow_frac.append(n_overflow / len(pending))
         stats.stage_occupancy.append(
             len(tri) / max(1, (len(pending) - n_overflow) * capacity)

@@ -154,16 +154,21 @@ def _build_from_unitigs(store: SequenceStore, k: int) -> Bigraph:
                 [p_pref, p_suff, _rc_packed(p_pref, km1), _rc_packed(p_suff, km1)]
             )
         else:
-            pref = store.gather_windows(offsets[:-1], km1)  # [U, k-1]
-            suff = store.gather_windows(offsets[1:] - km1, km1)  # [U, k-1]
-            rc_pref = (3 - pref)[:, ::-1]
-            rc_suff = (3 - suff)[:, ::-1]
-            all_kmers = np.concatenate([pref, suff, rc_pref, rc_suff], axis=0)
+            with span("load.build.keys.gather") as gather:
+                pref = store.gather_windows(offsets[:-1], km1)  # [U, k-1]
+                suff = store.gather_windows(offsets[1:] - km1, km1)  # [U, k-1]
+                rc_pref = (3 - pref)[:, ::-1]
+                rc_suff = (3 - suff)[:, ::-1]
+                all_kmers = np.concatenate([pref, suff, rc_pref, rc_suff], axis=0)
+                gather.add(bytes=all_kmers.nbytes)
             packed = None if km1 <= 62 else _pack_rows(all_kmers)
-        sp.add(keys=4 * n_uni)
+        # 64-bit words a node key takes: 1 packed, 2 as two words, 0 as byte rows
+        sp.add(keys=4 * n_uni, key_words=1 if km1 <= 31 else 2 if km1 <= 62 else 0)
     with span("load.build.nodes") as sp:
         if packed is None:
-            n_nodes, inverse = _unique_two_words(all_kmers)
+            with span("load.build.nodes.two_word") as two_word:
+                n_nodes, inverse = _unique_two_words(all_kmers)
+                two_word.add(rows=len(all_kmers))
         else:
             uniq, inverse = unique_with_inverse(packed)
             n_nodes = len(uniq)
